@@ -1,11 +1,18 @@
 """Shared argparse wiring with the reference flag names
-(arguments/__init__.py:47-114), for the flags the render path reads."""
+(arguments/__init__.py:47-114): model, optim and pipeline flags, and the
+port's ``--device``."""
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
-from pcp_tpu_torch.train.config import ModelConfig
+from pcp_tpu_torch.train.config import (
+    ModelConfig,
+    OptimConfig,
+    PipelineConfig,
+    TrainRunConfig,
+)
 from pcp_tpu_torch.utils.manhattan import get_man_trans, man_trans_from_cc
 
 
@@ -22,6 +29,30 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--platform", type=str, default="")
     p.add_argument("--pos", type=str, default="0 0 0")
     p.add_argument("--rot", type=str, default="0 0 0")
+    p.add_argument("--m_region", type=int, default=3)
+    p.add_argument("--n_region", type=int, default=3)
+    p.add_argument("--extend_rate", type=float, default=0.2)
+    p.add_argument("--visible_rate", type=float, default=0.25)
+    p.add_argument("--data_device", type=str, default="device",
+                   choices=["device", "host"],
+                   help="GT-image residency during training")
+
+
+def add_optim_args(p: argparse.ArgumentParser) -> None:
+    d = OptimConfig()
+    for f in dataclasses.fields(OptimConfig):
+        flag = "--" + f.name
+        if isinstance(getattr(d, f.name), bool):
+            p.add_argument(flag, action="store_true")
+        else:
+            p.add_argument(flag, type=type(getattr(d, f.name)),
+                           default=getattr(d, f.name))
+
+
+def add_pipeline_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--convert_SHs_python", action="store_true")
+    p.add_argument("--compute_cov3D_python", action="store_true")
+    p.add_argument("--no_appearance", action="store_true")
 
 
 def add_device_arg(p: argparse.ArgumentParser) -> None:
@@ -31,13 +62,20 @@ def add_device_arg(p: argparse.ArgumentParser) -> None:
 
 
 def model_config_from_args(args) -> ModelConfig:
-    return ModelConfig(
-        sh_degree=args.sh_degree, source_path=args.source_path,
-        model_path=args.model_path, images=args.images,
-        resolution=args.resolution, white_background=args.white_background,
-        eval=args.eval, llffhold=args.llffhold, manhattan=args.manhattan,
-        platform=args.platform, pos=args.pos, rot=args.rot,
+    return ModelConfig(**{f.name: getattr(args, f.name)
+                          for f in dataclasses.fields(ModelConfig)})
+
+
+def config_from_args(args) -> TrainRunConfig:
+    oc = OptimConfig(**{f.name: getattr(args, f.name)
+                        for f in dataclasses.fields(OptimConfig)})
+    pc = PipelineConfig(
+        convert_SHs_python=args.convert_SHs_python,
+        compute_cov3D_python=args.compute_cov3D_python,
+        use_appearance=not args.no_appearance,
     )
+    return TrainRunConfig(model=model_config_from_args(args), optim=oc,
+                          pipeline=pc)
 
 
 def man_trans_from_config(mc: ModelConfig):

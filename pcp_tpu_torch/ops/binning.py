@@ -17,6 +17,12 @@ tile_bits``. It is held in int64, which orders the uint32 key exactly.
 only its first ``max_per_tile`` (nearest) Gaussians, so both packages
 render the same image when a tile overflows. No pair is ever dropped, so
 ``n_dropped`` is 0.
+
+The bins keep the sort's permutation, the Gaussian-major pair gids and each
+Gaussian's range of them, so the backward turns per-pair gradient rows
+(tile-major) into gid-sorted rows with one permutation scatter
+(``gaussian_major``) and no second sort: the role of the JAX package's
+``pos_from_counts`` shortcut (rasterize.py:218-228).
 """
 
 from __future__ import annotations
@@ -33,6 +39,10 @@ class TileBins(NamedTuple):
     tile_count: torch.Tensor   # (num_tiles,) int32 min(load, max_per_tile)
     n_pairs: int               # total Gaussian x tile pairs
     max_tile_load: torch.Tensor  # () int32 largest pre-clamp tile load
+    order: torch.Tensor        # (n_pairs,) int64: gids[i] = pair_gid[order[i]]
+    pair_gid: torch.Tensor     # (n_pairs,) int32 Gaussian-major (sorted) gids
+    offsets: torch.Tensor      # (N + 1,) int32: Gaussian g owns pair_gid
+                               #   [offsets[g], offsets[g + 1])
     n_dropped: int = 0
 
 
@@ -41,8 +51,9 @@ def _ceil_log2(x: int) -> int:
 
 
 def pair_keys(rect, depths, tiles_x, tiles_y):
-    """(keys (P,) int64, gid (P,) int64, n_pairs) for every Gaussian x tile
-    pair of the rects, in Gaussian-major order."""
+    """(keys (P,) int64, gid (P,) int64, offsets (N + 1,) int64, n_pairs)
+    for every Gaussian x tile pair of the rects, in Gaussian-major order;
+    Gaussian g's pairs are [offsets[g], offsets[g + 1])."""
     device = rect.device
     n = rect.shape[0]
     num_tiles = tiles_x * tiles_y
@@ -55,18 +66,18 @@ def pair_keys(rect, depths, tiles_x, tiles_y):
     x0, y0 = rect[:, 0], rect[:, 1]
     wx = rect[:, 2] - rect[:, 0]
     counts = wx * (rect[:, 3] - rect[:, 1])
-    offsets = torch.cumsum(counts, 0) - counts           # exclusive
-    n_pairs = int(counts.sum())                          # the one D2H read
+    offsets = torch.nn.functional.pad(torch.cumsum(counts, 0), (1, 0))
+    n_pairs = int(offsets[-1])                           # the one D2H read
 
     gid = torch.repeat_interleave(
         torch.arange(n, device=device), counts, output_size=n_pairs)
-    local = torch.arange(n_pairs, device=device) - offsets[gid]
+    local = torch.arange(n_pairs, device=device) - offsets[:-1][gid]
     w = wx[gid]
     tile = (y0[gid] + local // w) * tiles_x + x0[gid] + local % w
     bits = depths.to(torch.float32).contiguous().view(torch.int32)
     dq = (bits.to(torch.int64) & 0xFFFFFFFF) >> tile_bits
     keys = (tile << depth_bits) | dq[gid]
-    return keys, gid, n_pairs
+    return keys, gid, offsets, n_pairs
 
 
 def bin_gaussians(
@@ -78,7 +89,7 @@ def bin_gaussians(
 ) -> TileBins:
     num_tiles = tiles_x * tiles_y
     depth_bits = 32 - _ceil_log2(num_tiles + 1)
-    keys, gid, n_pairs = pair_keys(rect, depths, tiles_x, tiles_y)
+    keys, gid, offsets, n_pairs = pair_keys(rect, depths, tiles_x, tiles_y)
     s_key, order = torch.sort(keys, stable=True)
     gids = gid[order].to(torch.int32)
     s_tile = s_key >> depth_bits
@@ -92,7 +103,18 @@ def bin_gaussians(
         tile_count=torch.clamp_max(load, max_per_tile).to(torch.int32),
         n_pairs=n_pairs,
         max_tile_load=max_load.to(torch.int32),
+        order=order,
+        pair_gid=gid.to(torch.int32),
+        offsets=offsets.to(torch.int32),
     )
+
+
+def gaussian_major(rows: torch.Tensor, bins: TileBins) -> torch.Tensor:
+    """Per-pair rows in pair-list (tile-major) order -> the same rows in
+    Gaussian-major order, whose gids are ``bins.pair_gid`` (nondecreasing)."""
+    out = torch.empty_like(rows)
+    out[bins.order] = rows
+    return out
 
 
 def tile_table(bins: TileBins, k: int) -> torch.Tensor:

@@ -1,9 +1,37 @@
-"""Quaternion and activation helpers (torch counterpart of
-``pcp_tpu/utils/general.py``; general_utils.py:18, :78-97 semantics)."""
+"""Schedule, quaternion and activation helpers (torch counterpart of
+``pcp_tpu/utils/general.py``; general_utils.py:18, :29-62, :78-97
+semantics)."""
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+
+def expon_lr(step, lr_init, lr_final, lr_delay_steps=0, lr_delay_mult=1.0,
+             max_steps=1_000_000) -> float:
+    """Plenoxels-style log-linear LR schedule with optional delayed warmup
+    (get_expon_lr_func, general_utils.py:29-62), evaluated in fp32 as the
+    JAX version is; returns the fp32 value as a Python float. 0 when
+    ``lr_init`` is 0 (a disabled group); ``step`` is clamped to
+    [0, max_steps]."""
+    f32 = torch.float32
+    step = torch.tensor(step, dtype=f32)
+    lr_init = torch.tensor(lr_init, dtype=f32)
+    lr_final = torch.tensor(lr_final, dtype=f32)
+    t = torch.clamp(step / max_steps, 0.0, 1.0)
+    log_lerp = torch.exp(
+        torch.log(torch.clamp_min(lr_init, 1e-32)) * (1 - t)
+        + torch.log(torch.clamp_min(lr_final, 1e-32)) * t
+    )
+    if float(lr_init) == 0.0:
+        return 0.0
+    if lr_delay_steps > 0:
+        delay_rate = lr_delay_mult + (1 - lr_delay_mult) * torch.sin(
+            0.5 * math.pi * torch.clamp(step / lr_delay_steps, 0.0, 1.0))
+        log_lerp = delay_rate * log_lerp
+    return float(log_lerp)
 
 
 def inverse_sigmoid(x):

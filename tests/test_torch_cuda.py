@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from pcp_tpu_torch.ops import composite
+from pcp_tpu_torch.ops import composite, segsum
 from pcp_tpu_torch.ops.projection import CameraIntrin
 from pcp_tpu_torch.ops.rasterize import rasterize
 
@@ -20,6 +20,23 @@ pytestmark = pytest.mark.cuda
 # The kernel runs the plain version's fp32 operations in the same order
 # (built with --fmad=false); expf is the only other rounding.
 ATOL = 1e-5
+# Sums taken in another order than the plain version's: the backward's
+# 256-pixel reductions (a shuffle tree) to 1e-5 of each plane's largest
+# value; the segment sum against index_add_'s atomics to 1e-6 of the sum of
+# |terms| of each segment (fp32 rounding grows with a segment's length).
+RSUM = 1e-5
+RSEG = 1e-6
+
+
+def _plane_rel(a, b):
+    """max |a - b| per column over that column's largest |b|."""
+    return ((a - b).abs().amax(0) / b.abs().amax(0).clamp_min(1e-30)).max()
+
+
+def _seg_rel(out, plain, rows, gid, n):
+    """max |out - plain| over the sum of |terms| of each segment."""
+    scale = segsum.sorted_segment_sum_plain(rows.abs(), gid, n)
+    return ((out - plain).abs() / scale.clamp_min(1e-30)).max()
 
 
 @pytest.fixture
@@ -112,7 +129,9 @@ def test_rasterize_on_the_card_matches_the_cpu(card):
         viewmat=np.eye(4, dtype=np.float32), image_size=(w, h),
         background=np.float32([0.1, 0.2, 0.3]), sh_degree=3)
     out = {}
-    for dev in ("cpu", "cuda"):
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for dev in ("cpu", "cuda", "cuda"):
         intrin = CameraIntrin(*(torch.tensor(v, device=dev) for v in
                                 (120.0, 120.0, w / 2, h / 2)))
         img, aux = rasterize(**kw, intrin=intrin, device=dev)
@@ -123,3 +142,120 @@ def test_rasterize_on_the_card_matches_the_cpu(card):
         assert float(diff.max()) <= 5e-3
         assert float((diff <= 1e-4).float().mean()) >= 0.999
     assert abs(out["cuda"][2] - out["cpu"][2]) <= 1e-3 * out["cpu"][2]
+
+
+@pytest.mark.parametrize("seed,max_count", [(0, 40), (1, 700), (2, 1500)])
+def test_composite_bwd_matches_plain(card, seed, max_count):
+    args = _bins(seed, 8, 5, max_count, card)
+    color, t_fin, n_contrib = composite.composite_fwd(*args)
+    g = torch.Generator(device=card).manual_seed(seed)
+    gcolor = torch.randn(color.shape, generator=g, device=card)
+    gtfin = torch.randn(t_fin.shape, generator=g, device=card)
+    before = composite.LAUNCHES["composite_bwd"]
+    rows = composite.composite_bwd(*args, t_fin, n_contrib, gcolor, gtfin)
+    assert composite.LAUNCHES["composite_bwd"] == before + 1
+    plain = composite.composite_bwd_plain(*args, t_fin, n_contrib, gcolor,
+                                          gtfin)
+    torch.cuda.synchronize()
+    assert rows.shape == (args[1].shape[0], 9)
+    assert float(_plane_rel(rows, plain)) <= RSUM
+    assert float(plain.abs().max()) > 0
+    # deterministic: a second launch gives the same bits
+    again = composite.composite_bwd(*args, t_fin, n_contrib, gcolor, gtfin)
+    assert torch.equal(rows, again)
+
+
+@pytest.mark.parametrize("case", ["random", "skewed", "pads"])
+def test_sorted_segment_sum_matches_plain(card, case):
+    rng = np.random.default_rng(7)
+    n = 4096
+    if case == "random":
+        gid = np.sort(rng.integers(0, n, 60_000))
+    elif case == "skewed":
+        gid = np.concatenate([np.full(50_000, 9), np.sort(
+            rng.integers(10, n, 10_000))])
+    else:
+        gid = np.concatenate([np.sort(rng.integers(0, 1000, 5000)),
+                              np.full(300, n), np.full(30, n + 5)])
+    gid_t = torch.tensor(gid.astype(np.int32), device=card)
+    rows = torch.tensor(rng.normal(size=(len(gid), 9)).astype(np.float32),
+                        device=card)
+    before = composite.LAUNCHES["sorted_segment_sum"]
+    out = segsum.sorted_segment_sum(rows, gid_t, n)
+    assert composite.LAUNCHES["sorted_segment_sum"] == before + 1
+    # the ranges the binning hands over give the same bits as the search
+    offsets = segsum.segment_offsets(gid_t.cpu(), n).to(card)
+    assert torch.equal(segsum.sorted_segment_sum(rows, gid_t, n, offsets),
+                       out)
+    plain = segsum.sorted_segment_sum_plain(rows, gid_t, n)
+    torch.cuda.synchronize()
+    assert float(_seg_rel(out, plain, rows, gid_t, n)) <= RSEG
+    # summed in row order, as the CPU's sequential index_add_: equal
+    cpu = segsum.sorted_segment_sum(rows.cpu(), gid_t.cpu(), n)
+    assert torch.equal(out.cpu(), cpu)
+    if case == "pads":
+        assert (out[1000:] == 0).all()
+
+
+def test_train_step_on_the_card_matches_the_cpu(card):
+    """One step of a seeded 3000-Gaussian state at 160x96 with appearance on
+    both devices: the loss to 1e-4 and each group's gradient (Adam's first
+    moment) to 1e-3 of its largest value. CPU and CUDA libm round exp in the
+    last bits, which can flip a sample at alpha = 1/255 or a pixel at the
+    T = 1e-4 stop. On the card the step runs twice from the same state and,
+    with cuDNN held to deterministic algorithms (the port's own kernels
+    use no atomics), gives the same bits."""
+    from pcp_tpu_torch.models.appearance import init_appearance
+    from pcp_tpu_torch.train import optim
+    from pcp_tpu_torch.train.config import OptimConfig
+    from pcp_tpu_torch.train.step import (TrainState, app_groups,
+                                          train_step_impl)
+    from pcp_tpu_torch.models.gaussians import (init_densify_stats,
+                                                params_from_numpy)
+
+    rng = np.random.default_rng(9)
+    n, w, h = 3000, 160, 96
+    params = {
+        "xyz": np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n),
+                         rng.uniform(3, 9, n)], -1),
+        "f_dc": rng.normal(0, 0.5, (n, 3)), "f_rest": rng.normal(
+            0, 0.1, (n, 15, 3)),
+        "scaling": rng.uniform(-4, -2, (n, 3)),
+        "rotation": rng.normal(size=(n, 4)),
+        "opacity": rng.uniform(-2, 2, (n, 1)),
+    }
+    gt = rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for dev in ("cpu", "cuda", "cuda"):
+        p, alive = params_from_numpy(params, np.ones(n, bool), dev)
+        app = init_appearance(torch.Generator().manual_seed(1), dev,
+                              num_embeddings=4)
+        state = TrainState(p, app, optim.init_adam(p), optim.init_adam(
+            app_groups(app)), alive, init_densify_stats(n, dev))
+        intrin = CameraIntrin(*(torch.tensor(v, device=dev) for v in
+                                (120.0, 120.0, w / 2, h / 2)))
+        composite.LAUNCHES.clear()
+        state, m = train_step_impl(
+            state, torch.eye(4, device=dev), intrin,
+            torch.tensor(gt, device=dev), 2, torch.zeros(3, device=dev),
+            2.0, ocfg=OptimConfig(), image_size=(w, h), sh_degree=3,
+            use_appearance=True)
+        if dev == "cuda":
+            assert dict(composite.LAUNCHES) == {
+                "composite_fwd": 1, "composite_bwd": 1,
+                "sorted_segment_sum": 1}
+        moments = {k: v[0].cpu() for k, v in state.opt_g["mu"].items()}
+        moments["net"] = torch.cat([v.flatten().cpu()
+                                    for v in state.opt_a["mu"]["net"]])
+        if dev in out:
+            assert all(torch.equal(moments[k], out[dev][1][k])
+                       for k in moments)
+        out[dev] = (float(m["loss"]), moments)
+    torch.backends.cudnn.deterministic = deterministic
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["cuda"]
+    assert abs(l_gpu - l_cpu) <= 1e-4 * l_cpu
+    for k in g_cpu:
+        rel = (g_gpu[k] - g_cpu[k]).abs().max() / g_cpu[k].abs().max()
+        assert float(rel) <= 1e-3, (k, float(rel))

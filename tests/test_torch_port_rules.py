@@ -140,3 +140,68 @@ def test_render_cli_defaults_to_the_card(tmp_path):
         pytest.skip("a CUDA card is present: the default device is valid")
     with pytest.raises(RuntimeError):
         render.main(["-s", str(tmp_path), "-m", str(tmp_path)])
+
+
+def _tiny_scene(tmp_path):
+    from pcp_tpu_torch.scene.dataset import CameraInfo, SceneInfo
+
+    rng = np.random.default_rng(1)
+    cam = CameraInfo(uid=0, image_id=1, R=np.eye(3), t=np.zeros(3),
+                     fovx=1.0, fovy=0.8, width=32, height=24,
+                     image_name="a.png", image_path="")
+    return SceneInfo(cameras=[cam], points=rng.uniform(-1, 1, (8, 3))
+                     .astype(np.float32) + [0, 0, 4],
+                     colors=rng.uniform(0, 1, (8, 3)).astype(np.float32),
+                     extent=1.0)
+
+
+def test_train_scene_without_device_needs_the_card(tmp_path):
+    from pcp_tpu_torch.train.config import (
+        ModelConfig,
+        OptimConfig,
+        TrainRunConfig,
+    )
+    from pcp_tpu_torch.train.loop import init_state, train_scene
+
+    cfg = TrainRunConfig(model=ModelConfig(model_path=str(tmp_path)),
+                         optim=OptimConfig(iterations=1, capacity=16))
+    scene = _tiny_scene(tmp_path)
+    state = init_state(scene, cfg, torch.Generator().manual_seed(0), "cpu")
+    assert state.alive.device.type == "cpu" and int(state.alive.sum()) == 8
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    with pytest.raises(RuntimeError):
+        train_scene(scene, cfg, log_fn=None)
+    with pytest.raises(RuntimeError):
+        init_state(scene, cfg, torch.Generator().manual_seed(0))
+
+
+def test_train_step_state_without_device_needs_the_card():
+    from pcp_tpu_torch.train.step import train_state_from_numpy
+
+    n = 4
+    params = {
+        "xyz": np.zeros((n, 3), np.float32), "f_dc": np.zeros((n, 3)),
+        "f_rest": np.zeros((n, 0, 3)), "scaling": np.zeros((n, 3)),
+        "rotation": np.tile([1.0, 0, 0, 0], (n, 1)),
+        "opacity": np.zeros((n, 1)),
+    }
+    opt = {"mu": params, "nu": params, "count": 0}
+    stats = {k: np.zeros(n) for k in ("grad_accum", "denom", "max_radii2d")}
+    args = (params, None, opt, None, np.ones(n, bool), stats)
+    state = train_state_from_numpy(*args, device="cpu")
+    assert state.params["xyz"].device.type == "cpu"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    with pytest.raises(RuntimeError):
+        train_state_from_numpy(*args)
+
+
+def test_train_cli_defaults_to_the_card(tmp_path):
+    from pcp_tpu_torch.cli import train
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    with pytest.raises(RuntimeError):
+        train.main(["-s", str(tmp_path), "-m", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
