@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's render and training paths on one CUDA card
-and hold every kernel on them against its plain PyTorch version.
+"""Drive the PyTorch/CUDA port's render, training, eval and gather-experiment
+paths on one CUDA card and hold every kernel on them against its plain
+PyTorch version.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -9,12 +10,13 @@ there, needs no install step and nothing from the network. Phases:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    the TF32 flags;
-2. build every kernel of both paths (one ``nvcc`` per source, together);
+2. build every kernel of the paths (one ``nvcc`` per source, together);
 3. write a synthetic scene from ``--seed``: a COLMAP binary model of
    1280x800 cameras with GT PNGs and ``N_GAUSSIANS`` points, and a Gaussian
    PLY at SH degree 3 whose density statistics are those of the repo's
    reference-scale bench scene (``tools/bench_scene.py`` at 719k Gaussians,
-   1280x800);
+   1280x800); the test views' GT is the PLY's own render on the card under
+   a per-view color warp;
 4. the render path: ``pcp_tpu_torch.cli.render.main`` on ``cuda``, with
    every launch count set to 0 just before and read just after;
 5. ``composite_fwd`` against its plain version on one full-width view;
@@ -31,8 +33,23 @@ there, needs no install step and nothing from the network. Phases:
     versions on the inputs they got in that step, with their times and
     bounds;
 11. one train step of a small scene on the CPU and on the card;
-12. one ``{"kernels": [...]}`` line, the card's name and power limit, and
+12. the eval path: ``pcp_tpu_torch.cli.metrics.main`` on ``cuda`` over the
+    8 test views that phase 4 rendered, with a synthetic LPIPS bundle drawn
+    from ``--seed`` (no pretrained weights are in the repo, so every LPIPS
+    value here is synthetic); then the per-view device time of the color
+    correction, SSIM and LPIPS at 1280x800;
+13. ``evaluate_images`` on 3 small views on the CPU and on the card;
+14. ``pcp_tpu_torch.cli.full_eval.main`` on ``cuda``: a small scene, linked
+    as Tanks&Temples' ``truck`` and ``train``, through train -> render ->
+    metrics for ``FULL_EVAL_ITERS`` iterations;
+15. the gather experiment (``pcp_tpu_torch.tools.exp_r2 gather``) at its
+    default shapes and at N = 2^20, each of its three forms held bit for
+    bit to the plain version; ``sort`` and ``xlagather`` once;
+16. one ``{"kernels": [...]}`` line, the card's name and power limit, and
     the ``{"ok": true, ...}`` line last.
+
+Paths 4, 8, 12, 14 and 15 each run with every launch count set to 0 just
+before and read just after.
 
 Any failed check raises: the script then exits non-zero and prints no
 result line. Without a CUDA card it exits 1 before doing anything.
@@ -55,9 +72,13 @@ import numpy as np
 import torch
 from torch.autograd import DeviceType
 
+from pcp_tpu_torch.cli import full_eval as full_eval_cli
+from pcp_tpu_torch.cli import metrics as metrics_cli
 from pcp_tpu_torch.cli import render as render_cli
 from pcp_tpu_torch.cli import train as train_cli
 from pcp_tpu_torch.device import resolve_device
+from pcp_tpu_torch.eval.lpips import make_lpips, synthetic_weights
+from pcp_tpu_torch.eval.metrics import _load_image, evaluate_images
 from pcp_tpu_torch.eval.render_batch import render_view
 from pcp_tpu_torch.io import colmap
 from pcp_tpu_torch.io.ply import save_gaussian_ply
@@ -65,6 +86,7 @@ from pcp_tpu_torch.models import gaussians as G
 from pcp_tpu_torch.models.appearance import init_appearance
 from pcp_tpu_torch.ops import _build
 from pcp_tpu_torch.ops import composite, segsum
+from pcp_tpu_torch.ops.gather import LAYOUTS, gather_pack, gather_pack_plain
 from pcp_tpu_torch.ops import rasterize as rasterize_mod
 from pcp_tpu_torch.ops.binning import bin_gaussians
 from pcp_tpu_torch.ops.projection import TILE, preprocess
@@ -73,8 +95,11 @@ from pcp_tpu_torch.scene import cameras as cam_mod
 from pcp_tpu_torch.scene import load_colmap_scene, split_train_test
 from pcp_tpu_torch.train import optim
 from pcp_tpu_torch.train.config import OptimConfig
+from pcp_tpu_torch.tools import exp_r2
 from pcp_tpu_torch.train.step import TrainState, app_groups, train_step_impl
 from pcp_tpu_torch.utils.graphics import rotmat_to_qvec
+from pcp_tpu_torch.utils.image import color_correct
+from pcp_tpu_torch.utils.loss import ssim
 from pcp_tpu_torch.utils.sh import rgb_to_sh
 
 ROOT = Path(__file__).resolve().parent
@@ -98,8 +123,12 @@ CAPACITY = 1 << 20                 # the JAX package's default slot count
 TRAIN_ITERS = 28
 DENSIFY_FROM, DENSIFY_EVERY, RESET_EVERY = 5, 10, 25
 STEP_REPS = 5                      # timed warm steps at full width
+# full_eval: a small scene (4 cameras, the first a test view at llffhold
+# 83) trained for a few steps, in seconds
+FULL_EVAL_GAUSSIANS, FULL_EVAL_ITERS = 20_000, 10
+GATHER_N = (exp_r2.N, 1 << 20)     # the JAX tool's pack; the port's slots
 
-# Every kernel of both paths. ``replaces`` is the TPU kernel's pallas_call.
+# Every kernel of the paths. ``replaces`` is the TPU kernel's pallas_call.
 KERNELS = [
     {"name": "composite_fwd", "route": "cuda",
      "source": "pcp_tpu_torch/csrc/composite_fwd.cu",
@@ -110,6 +139,9 @@ KERNELS = [
     {"name": "sorted_segment_sum", "route": "cuda",
      "source": "pcp_tpu_torch/csrc/segsum.cu",
      "replaces": "pcp_tpu/ops/segsum_pallas.py:164"},
+    {"name": "gather_pack", "route": "cuda",
+     "source": "pcp_tpu_torch/csrc/gather_pack.cu",
+     "replaces": "tools/exp_r2.py:80"},
 ]
 
 # Kernel vs plain version on the card: the same fp32 operations in the same
@@ -124,6 +156,10 @@ NCONTRIB_AGREE = 0.9999
 # segment's length).
 KERNEL_RSUM = 1e-5
 KERNEL_RSEG = 1e-6
+# The eval path on the card against the CPU, as tests/test_torch_eval.py
+# holds the port against the JAX package: PSNR in dB, SSIM absolute, LPIPS
+# relative.
+EVAL_TOL = {"PSNR": 1e-3, "SSIM": 1e-5, "LPIPS": 1e-5}
 
 
 def log(msg: str) -> None:
@@ -133,6 +169,15 @@ def log(msg: str) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def counts() -> dict:
+    """Launches of each kernel of KERNELS since LAUNCHES was cleared; the
+    gather counts its three layouts' entry points together."""
+    out = {k["name"]: composite.LAUNCHES[k["name"]] for k in KERNELS}
+    out["gather_pack"] = sum(composite.LAUNCHES[f"gather_pack_{lay}"]
+                             for lay in LAYOUTS)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -189,7 +234,7 @@ def _rot(yaw: float, pitch: float) -> np.ndarray:
     return rx @ ry
 
 
-def write_scene(root: Path, seed: int, n: int, n_cams: int) -> tuple:
+def write_scene(root: Path, seed: int, n: int, n_cams: int, dev) -> tuple:
     """COLMAP model + GT PNGs under ``root/scene`` and a Gaussian PLY at
     ``root/model/point_cloud.ply``.
 
@@ -199,7 +244,13 @@ def write_scene(root: Path, seed: int, n: int, n_cams: int) -> tuple:
     opacity uniform in [0.1, 0.8]; here also random rotations and SH rest
     coefficients so SH degree 3 does work. The COLMAP points are the same
     ``n`` positions, so training starts at full width. Cameras jitter
-    around the bench camera by a few degrees and a little translation."""
+    around the bench camera by a few degrees and a little translation.
+
+    GT images: the training views' are colour ramps. The test views' (every
+    LLFFHOLD-th camera from the first) are the PLY rendered on ``dev`` under
+    a per-view exposure, white balance and gamma, plus noise: what a scored
+    model's photographs look like, with a real colour warp for the eval's
+    correction to undo (a grey GT would leave it a singular system)."""
     from PIL import Image as PILImage
 
     rng = np.random.default_rng(seed)
@@ -234,13 +285,29 @@ def write_scene(root: Path, seed: int, n: int, n_cams: int) -> tuple:
         R = _rot(*np.radians(rng.uniform(-3, 3, 2)))
         t = rng.uniform(-0.5, 0.5, 3) * [1, 1, 2]
         name = f"im{i:03d}.png"
-        gt = np.broadcast_to((ramp + 9 * i) % 256, (H, W, 3)).astype(np.uint8)
-        PILImage.fromarray(gt).save(scene / "images" / name)
+        if i % LLFFHOLD:
+            gt = np.broadcast_to((ramp + 9 * i) % 256, (H, W, 3))
+            PILImage.fromarray(gt.astype(np.uint8)).save(
+                scene / "images" / name)
         images[i + 1] = colmap.Image(i + 1, rotmat_to_qvec(R), t, 1, name)
     pts = colmap.Points3D.from_arrays(
         xyz, rng.integers(0, 256, (n, 3)).astype(np.uint8))
     colmap.write_model(cams, images, pts, str(scene / "sparse" / "0"),
                        ext=".bin")
+
+    params, alive = G.load_gaussians_ply(
+        str(model / "point_cloud.ply"),
+        G.GaussianConfig(sh_degree=SH_DEGREE, capacity=n), dev)
+    bg = torch.zeros(3, device=dev)
+    for info in load_colmap_scene(str(scene)).cameras[::LLFFHOLD]:
+        img, _ = render_view(params, alive,
+                             cam_mod.from_info(info, -1, load_image=False),
+                             SH_DEGREE, bg, device=dev)
+        gain = np.exp(rng.uniform(-0.2, 0.2) + rng.uniform(-0.1, 0.1, 3))
+        photo = img ** rng.uniform(0.9, 1.1) * gain + rng.normal(
+            0.0, 0.02, img.shape)
+        PILImage.fromarray((np.clip(photo, 0, 1) * 255).astype(np.uint8)
+                           ).save(info.image_path)
     return scene, model
 
 
@@ -257,7 +324,7 @@ def main_path(scene: Path, model: Path) -> dict:
     stats = render_cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k["name"]: composite.LAUNCHES[k["name"]] for k in KERNELS}
+    launches = counts()
     views = stats["test"]
     out = model / "test" / "ours_merged"
     for sub in ("renders", "gt"):
@@ -265,7 +332,7 @@ def main_path(scene: Path, model: Path) -> dict:
         check(pngs == [f"{i:05d}.png" for i in range(len(views))],
               f"{sub}/ holds one PNG per view")
     check(launches == {"composite_fwd": len(views), "composite_bwd": 0,
-                       "sorted_segment_sum": 0},
+                       "sorted_segment_sum": 0, "gather_pack": 0},
           f"the render path launches the forward kernel only: {launches}")
     check(len(views) == TEST_VIEWS, f"{TEST_VIEWS} test views rendered")
     check(all(v["n_dropped"] == 0 for v in views), "n_dropped == 0")
@@ -509,7 +576,7 @@ def train_path(scene: Path, out: Path) -> dict:
     state = train_cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k["name"]: composite.LAUNCHES[k["name"]] for k in KERNELS}
+    launches = counts()
     logs = [json.loads(line) for line in
             (out / "train_log.jsonl").read_text().splitlines()]
     steps = [r for r in logs if "train_loss_patches/total_loss" in r]
@@ -831,6 +898,219 @@ def cpu_vs_cuda_step(params, alive, cam, gt, n_small: int, seed: int):
 
 
 # --------------------------------------------------------------------------
+# 12. the eval path
+# --------------------------------------------------------------------------
+
+
+def write_lpips_bundle(path: Path, seed: int) -> str:
+    """``synthetic_weights(seed)`` as an ``.npz``: random AlexNet-LPIPS
+    weights, a stand-in until the pretrained weights are in the repo, so
+    every LPIPS value they give is synthetic."""
+    np.savez(path, **synthetic_weights(seed))
+    return str(path)
+
+
+def eval_path(model: Path, weights: str) -> dict:
+    """``cli.metrics`` on the card over the test views the render path
+    wrote; checks the files, the values and that no kernel launched."""
+    mdir = model / "test" / "ours_merged"
+    names = [f"{i:05d}.png" for i in range(TEST_VIEWS)]
+    composite.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = metrics_cli.main(["-m", str(model), "--lpips_weights", weights,
+                            "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    check(list(res) == [str(mdir)], f"one method dir scored: {list(res)}")
+    per_view = json.loads((mdir / "per_view.json").read_text())
+    mean = json.loads((mdir / "results.json").read_text())
+    check(sorted(per_view) == names, "per_view.json holds every test view")
+    check(sorted(os.listdir(mdir / "renders_cc")) == names,
+          "renders_cc/ holds every test view")
+    check(mean == res[str(mdir)]["mean"], "results.json is the mean")
+    for name, row in per_view.items():
+        check(all(math.isfinite(row[k]) for k in ("PSNR", "SSIM", "LPIPS")),
+              f"finite PSNR, SSIM and LPIPS for {name}: {row}")
+        check(-1.0 <= row["SSIM"] <= 1.0, f"SSIM in [-1, 1] for {name}")
+    check(not any(launches.values()),
+          f"the eval path launches none of the port's kernels: {launches}")
+    log(f"cli metrics: {len(per_view)} views in {wall:.2f} s "
+        f"({wall * 1e3 / len(per_view):.1f} ms/view with PNG I/O), mean "
+        f"{mean} (LPIPS synthetic)")
+    return {"launches": launches, "wall_s": wall,
+            "wall_ms_per_view": wall * 1e3 / len(per_view), "mean": mean,
+            "per_view": per_view, "lpips_synthetic": True}
+
+
+def eval_times(mdir: Path, weights: str, dev) -> dict:
+    """Per-view times of the eval path's three stages on view 0 at full
+    size: CUDA-event ms (host waits included: every ``linalg.solve``
+    checks its result on the host) and device busy ms from the profiler.
+    Also LPIPS(x, x)."""
+    r = torch.as_tensor(_load_image(str(mdir / "renders" / "00000.png")),
+                        device=dev)
+    g = torch.as_tensor(_load_image(str(mdir / "gt" / "00000.png")),
+                        device=dev)
+    lpips_fn = make_lpips(weights, dev)
+    rc = torch.clamp(color_correct(r, g), 0.0, 1.0)
+    stages = {
+        "color_correct": lambda: color_correct(r, g),
+        "ssim": lambda: ssim(rc.permute(2, 0, 1), g.permute(2, 0, 1)),
+        "lpips": lambda: lpips_fn(rc, g),
+    }
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    out = {}
+    with torch.no_grad():
+        same = float(lpips_fn(rc, rc))
+        for name, fn in stages.items():
+            ms = cuda_ms(fn, reps=5)
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(3):
+                    fn()
+                torch.cuda.synchronize()
+            busy = sum(v for _, v in device_kernels(prof, 3))
+            out[name] = {"ms": ms, "device_busy_ms": busy}
+    check(abs(same) <= 1e-6, f"LPIPS(x, x) = 0: {same}")
+    log(f"eval per view at {r.shape[1]}x{r.shape[0]} (ms by CUDA events / "
+        f"device busy): " + ", ".join(
+            f"{k} {v['ms']:.3f} / {v['device_busy_ms']:.3f}"
+            for k, v in out.items()) + f"; LPIPS(x, x) {same}")
+    return dict(out, lpips_same=same)
+
+
+# --------------------------------------------------------------------------
+# 13. evaluate_images on the CPU and on the card
+# --------------------------------------------------------------------------
+
+
+def eval_cpu_vs_cuda(weights: str, seed: int) -> dict:
+    """3 views at 120x160: GT noise, renders a color warp of it."""
+    rng = np.random.default_rng(seed)
+    gts = [rng.uniform(0, 1, (120, 160, 3)).astype(np.float32)
+           for _ in range(3)]
+    renders = [np.clip(0.8 * x + 0.15 * x * x + 0.05 + rng.normal(
+        0, 0.05, x.shape), 0, 1).astype(np.float32) for x in gts]
+    out = {dev: evaluate_images(renders, gts, lpips_weights=weights,
+                                device=dev)["per_view"]
+           for dev in ("cpu", "cuda")}
+    worst = dict.fromkeys(EVAL_TOL, 0.0)
+    for name, row in out["cpu"].items():
+        for k in EVAL_TOL:
+            a, b = out["cuda"][name][k], row[k]
+            worst[k] = max(worst[k], abs(a - b) / (abs(b) if k == "LPIPS"
+                                                   else 1.0))
+    log(f"evaluate_images cpu vs cuda, 3 views at 160x120: largest "
+        f"difference {worst} (tol {EVAL_TOL}; LPIPS relative)")
+    check(all(worst[k] <= EVAL_TOL[k] for k in EVAL_TOL),
+          "evaluate_images agrees on the CPU and the card")
+    return {"worst": worst, "per_view": out}
+
+
+# --------------------------------------------------------------------------
+# 14. full_eval
+# --------------------------------------------------------------------------
+
+
+def full_eval_path(root: Path, seed: int, dev) -> dict:
+    """``cli.full_eval`` on the card over a small scene linked as both
+    Tanks&Temples scenes: train, render and score each."""
+    scene, _ = write_scene(root, seed, FULL_EVAL_GAUSSIANS, 4, dev)
+    tt = root / "tanksandtemples"
+    tt.mkdir()
+    for name in full_eval_cli.TANKS_AND_TEMPLES:
+        (tt / name).symlink_to(scene)
+    out = root / "eval"
+    composite.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = full_eval_cli.main(["--tanksandtemples", str(tt), "--output_path",
+                              str(out), "--iterations", str(FULL_EVAL_ITERS),
+                              "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    n = len(full_eval_cli.TANKS_AND_TEMPLES)
+    check(sorted(res) == sorted(
+        str(out / s / "test" / f"ours_{FULL_EVAL_ITERS}")
+        for s in full_eval_cli.TANKS_AND_TEMPLES),
+        f"full_eval scored both scenes: {sorted(res)}")
+    for mdir, r in res.items():
+        check(json.loads((Path(mdir) / "results.json").read_text())
+              == r["mean"], f"{mdir}/results.json is written")
+        check(math.isfinite(r["mean"]["PSNR"])
+              and math.isfinite(r["mean"]["SSIM"]), f"finite metrics: {r}")
+    # per scene: a forward and a backward per step, a forward for the one
+    # test view at the eval and one more when the render CLI draws it
+    check(launches == {"composite_fwd": n * (FULL_EVAL_ITERS + 2),
+                       "composite_bwd": n * FULL_EVAL_ITERS,
+                       "sorted_segment_sum": n * FULL_EVAL_ITERS,
+                       "gather_pack": 0},
+          f"full_eval's launches: {launches}")
+    log(f"cli full_eval: {n} scenes x {FULL_EVAL_ITERS} iterations, "
+        f"render and metrics in {wall:.1f} s, launches {launches}, means "
+        f"{ {Path(k).parts[-3]: v['mean'] for k, v in res.items()} }")
+    return {"launches": launches, "wall_s": wall,
+            "means": {Path(k).parts[-3]: v["mean"] for k, v in res.items()}}
+
+
+# --------------------------------------------------------------------------
+# 15. the gather experiment
+# --------------------------------------------------------------------------
+
+
+def gather_path() -> dict:
+    """``exp_r2 gather`` through the tool's entry point at each N."""
+    composite.LAUNCHES.clear()
+    runs = {n: exp_r2.main(["gather", "--n", str(n)])["gather"]
+            for n in GATHER_N}
+    torch.cuda.synchronize()
+    launches = counts()
+    by_layout = {lay: composite.LAUNCHES[f"gather_pack_{lay}"]
+                 for lay in LAYOUTS}
+    check(all(f["ok"] for r in runs.values() for f in r["forms"].values()),
+          "every gather form passes the tool's spot check")
+    check(all(by_layout.values()) and launches["gather_pack"]
+          == sum(by_layout.values()) and not any(
+              v for k, v in launches.items() if k != "gather_pack"),
+          f"the gather path launches each layout's kernel: {by_layout}")
+    return {"runs": runs, "launches": launches, "by_layout": by_layout}
+
+
+def gather_checks(runs: dict, dev) -> dict:
+    """Each form bit for bit against the plain version on the tool's
+    inputs at each N, and the bound from the bytes the tool counted."""
+    by_n = {}
+    for n, r in runs.items():
+        pack, ids = exp_r2.make_inputs(n, r["na"], r["nt"], r["k"], 0, dev)
+        pack_t = pack.T.contiguous()
+        errs = {}
+        for name, layout in exp_r2.FORMS:
+            src = pack_t if layout == "plane" else pack
+            out = gather_pack(src, ids, layout)
+            plain = gather_pack_plain(src, ids, layout)
+            torch.cuda.synchronize()
+            check(torch.equal(out, plain),
+                  f"{name} at N={n} equals the plain version bit for bit")
+            errs[name] = float((out - plain).abs().max())
+        bound = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        by_n[n] = {"bytes": r["bytes"], "bound_ms": bound,
+                   "plain_ms": r["plain_ms"], "max_abs_err": errs,
+                   "ms": {f: v["ms"] for f, v in r["forms"].items()}}
+        log(f"gather N={n}: forms (ms) {by_n[n]['ms']}, plain = index_select "
+            f"{r['plain_ms']:.4f} ms, bytes {r['bytes']} (bound "
+            f"{bound:.4f} ms), bit-equal to plain")
+    first = by_n[GATHER_N[0]]
+    # the headline is the row form, the layout the composite kernels use,
+    # at the tool's default shapes; the plain version is the library call
+    return {"max_abs_err": max(max(b["max_abs_err"].values())
+                               for b in by_n.values()),
+            "ms": first["ms"]["form2_row_take"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": "bytes",
+            "library_ms": first["plain_ms"], "by_n": by_n}
+
+
+# --------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -849,7 +1129,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(dir=SCRATCH) as tmp:
         t0 = time.perf_counter()
         scene, model = write_scene(Path(tmp), args.seed, N_GAUSSIANS,
-                                   LLFFHOLD * TEST_VIEWS)
+                                   LLFFHOLD * TEST_VIEWS, dev)
         log(f"scene: {N_GAUSSIANS} Gaussians, SH {SH_DEGREE}, "
             f"{LLFFHOLD * TEST_VIEWS} cameras at {W}x{H}, written in "
             f"{time.perf_counter() - t0:.1f} s")
@@ -894,12 +1174,30 @@ def main(argv=None) -> int:
         del inputs, state
         small = cpu_vs_cuda_step(params, alive, cam, gt, 40_000, args.seed)
 
+        weights = write_lpips_bundle(Path(tmp) / "lpips.npz", args.seed)
+        ev = eval_path(model, weights)
+        ev["times"] = eval_times(model / "test" / "ours_merged", weights, dev)
+        ev["cpu_vs_cuda"] = eval_cpu_vs_cuda(weights, args.seed)
+        fe = full_eval_path(Path(tmp) / "full_eval", args.seed + 1, dev)
+
+        gather = gather_path()
+        measured["gather_pack"] = gather_checks(gather["runs"], dev)
+        other = exp_r2.main(["sort"])
+        other.update(exp_r2.main(["xlagather"]))
+
+    paths = {"render": run["launches"], "train": train["launches"],
+             "metrics": ev["launches"], "full_eval": fe["launches"],
+             "exp_r2": gather["launches"]}
+    main_path_of = {"composite_fwd": "train", "composite_bwd": "train",
+                    "sorted_segment_sum": "train", "gather_pack": "exp_r2"}
     print(json.dumps({"render": dict(render, views=run["views"]),
-                      "train": dict(train, step=step, small=small)}))
+                      "train": dict(train, step=step, small=small),
+                      "eval": ev, "full_eval": fe,
+                      "exp_r2": dict(other, gather_by_layout=gather[
+                          "by_layout"])}))
     print(json.dumps({"kernels": [
-        dict(k, launches=train["launches"][k["name"]],
-             launches_by_path={"render": run["launches"].get(k["name"], 0),
-                               "train": train["launches"][k["name"]]},
+        dict(k, launches=paths[main_path_of[k["name"]]][k["name"]],
+             launches_by_path={p: c[k["name"]] for p, c in paths.items()},
              **measured[k["name"]])
         for k in KERNELS]}))
     print(smi)

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from pcp_tpu_torch.device import DeviceLike, resolve_device
+from pcp_tpu_torch.eval.render_batch import eval_views
 from pcp_tpu_torch.models import gaussians as G
 from pcp_tpu_torch.models.appearance import init_appearance
 from pcp_tpu_torch.scene import cameras as cam_mod
@@ -37,10 +38,8 @@ from pcp_tpu_torch.train.step import (
     app_groups,
     densify_impl,
     opacity_reset_impl,
-    render_gaussians,
     train_step_impl,
 )
-from pcp_tpu_torch.utils.image import psnr
 
 
 def init_state(scene: SceneInfo, cfg: TrainRunConfig,
@@ -68,24 +67,12 @@ def init_state(scene: SceneInfo, cfg: TrainRunConfig,
 def evaluate_cameras(state: TrainState, cams, sh_degree: int, background,
                      ocfg) -> Dict[str, float]:
     """Mean L1 and PSNR of the clipped renders over ``cams``
-    (training_report, train.py:188-243); each view reduces on the card."""
-    dev = state.alive.device
-    l1s, psnrs = [], []
-    with torch.no_grad():
-        for cam in cams:
-            viewmat, intrin = cam_mod.camera_tensors(cam, dev)
-            img, _ = render_gaussians(
-                state.params, state.alive, viewmat, intrin,
-                (cam.width, cam.height), background, sh_degree,
-                max_per_tile=ocfg.tile_clamp(), device=dev)
-            img = torch.clamp(img, 0.0, 1.0)[None]
-            gt = torch.as_tensor(cam.gt_image, device=dev)[None]
-            l1s.append(torch.abs(img - gt).mean())
-            psnrs.append(psnr(img, gt)[0])
-    if not cams:
-        return {"l1": 0.0, "psnr": 0.0}
-    return {"l1": float(torch.stack(l1s).mean()),
-            "psnr": float(torch.stack(psnrs).mean())}
+    (training_report, train.py:188-243), through ``eval_views``."""
+    l1s, psnrs = eval_views(
+        state.params, state.alive, cams, sh_degree, background,
+        max_per_tile=ocfg.tile_clamp(), device=state.alive.device)
+    return {"l1": float(np.mean(l1s)) if l1s else 0.0,
+            "psnr": float(np.mean(psnrs)) if psnrs else 0.0}
 
 
 def save_model(state: TrainState, model_path: str, iteration: int,

@@ -259,3 +259,57 @@ def test_train_step_on_the_card_matches_the_cpu(card):
     for k in g_cpu:
         rel = (g_gpu[k] - g_cpu[k]).abs().max() / g_cpu[k].abs().max()
         assert float(rel) <= 1e-3, (k, float(rel))
+
+
+@pytest.mark.parametrize("layout", ["row", "col", "plane"])
+def test_gather_pack_matches_plain(card, layout):
+    """Bit for bit: a gather does no arithmetic. K = 300 is no multiple of
+    32, so warps straddle two id rows; ids outside [0, N) give NaN."""
+    from pcp_tpu_torch.ops.gather import gather_pack, gather_pack_plain
+
+    rng = np.random.default_rng(11)
+    n, na, nt, k = 5000, 16, 37, 300
+    pack = torch.tensor(rng.standard_normal((n, na)).astype(np.float32),
+                        device=card)
+    src = pack.T.contiguous() if layout == "plane" else pack
+    ids = torch.tensor(rng.integers(0, n, (nt, k)).astype(np.int32),
+                       device=card)
+    key = f"gather_pack_{layout}"
+    before = composite.LAUNCHES[key]
+    out = gather_pack(src, ids, layout)
+    assert composite.LAUNCHES[key] == before + 1
+    plain = gather_pack_plain(src, ids, layout)
+    torch.cuda.synchronize()
+    assert out.shape == (nt, na, k)
+    assert torch.equal(out, plain)
+    bad = ids.clone()
+    bad[0, :2] = torch.tensor([-1, n], dtype=torch.int32)
+    out = gather_pack(src, bad, layout)
+    torch.cuda.synchronize()
+    assert torch.isnan(out[0, :, :2]).all()
+    assert torch.equal(out[0, :, 2:], plain[0, :, 2:])
+    assert torch.equal(out[1:], plain[1:])
+
+
+def test_evaluate_images_on_the_card_matches_the_cpu(card, tmp_path):
+    """3 warped views with a random LPIPS bundle, to the tolerances of
+    tests/test_torch_eval.py: PSNR 1e-3 dB, SSIM 1e-5, LPIPS 1e-5
+    relative."""
+    from pcp_tpu_torch.eval.lpips import synthetic_weights
+    from pcp_tpu_torch.eval.metrics import evaluate_images
+
+    rng = np.random.default_rng(12)
+    path = str(tmp_path / "lpips.npz")
+    np.savez(path, **synthetic_weights(12))
+    gts = [rng.uniform(0, 1, (96, 128, 3)).astype(np.float32)
+           for _ in range(3)]
+    renders = [np.clip(0.8 * g + 0.15 * g * g + 0.05 + rng.normal(
+        0, 0.05, g.shape), 0, 1).astype(np.float32) for g in gts]
+    out = {dev: evaluate_images(renders, gts, lpips_weights=path,
+                                device=dev)["per_view"]
+           for dev in ("cpu", "cuda")}
+    for name, c in out["cpu"].items():
+        g = out["cuda"][name]
+        assert abs(g["PSNR"] - c["PSNR"]) <= 1e-3
+        assert abs(g["SSIM"] - c["SSIM"]) <= 1e-5
+        assert abs(g["LPIPS"] - c["LPIPS"]) <= 1e-5 * abs(c["LPIPS"])
