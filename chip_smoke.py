@@ -31,7 +31,9 @@ there, needs no install step and nothing from the network. Phases:
    marks, device busy time and idle share;
 10. ``composite_bwd`` and ``sorted_segment_sum`` against their plain
     versions on the inputs they got in that step, with their times and
-    bounds;
+    bounds; then ``composite_fwd`` and ``composite_bwd`` against their plain
+    versions on tile loads shaped like a real block's (p50 960, p99 2100,
+    max 2640 pairs a tile) at 1280x800, with their times and bounds;
 11. one train step of a small scene on the CPU and on the card;
 12. the eval path: ``pcp_tpu_torch.cli.metrics.main`` on ``cuda`` over the
     8 test views that phase 4 rendered, with a synthetic LPIPS bundle drawn
@@ -53,6 +55,12 @@ before and read just after.
 
 Any failed check raises: the script then exits non-zero and prints no
 result line. Without a CUDA card it exits 1 before doing anything.
+
+    python3 chip_smoke.py --full-eval-runs 20 [--cudnn-deterministic]
+
+runs phases 1, 2 and then only phase 14, that many times on the same
+scene, and prints each run's PSNR and SSIM per scene as one JSON line:
+the spread of ``full_eval``'s metrics from run to run.
 """
 
 from __future__ import annotations
@@ -96,6 +104,7 @@ from pcp_tpu_torch.scene import load_colmap_scene, split_train_test
 from pcp_tpu_torch.train import optim
 from pcp_tpu_torch.train.config import OptimConfig
 from pcp_tpu_torch.tools import exp_r2
+from pcp_tpu_torch.tools.blend_inputs import blend_inputs, real_block_counts
 from pcp_tpu_torch.train.step import TrainState, app_groups, train_step_impl
 from pcp_tpu_torch.utils.graphics import rotmat_to_qvec
 from pcp_tpu_torch.utils.image import color_correct
@@ -144,16 +153,21 @@ KERNELS = [
      "replaces": "tools/exp_r2.py:80"},
 ]
 
-# Kernel vs plain version on the card: the same fp32 operations in the same
-# order (the kernel is built with --fmad=false), so they agree to rounding
-# of expf; n_contrib may differ only where that flips a threshold.
+# Forward kernel vs plain version on the card: every decision (power, the
+# 1/255 test, the T < 1e-4 stop) and T take the plain version's fp32
+# operations in its order (built with --fmad=false), and a warp passes over
+# a row only where the row's box, which holds every applied pixel, misses
+# it; so t_fin and n_contrib agree but where expf rounds otherwise and flips
+# a threshold. The colour sums are FMAs, a few ulp from the plain version's
+# mul-then-add.
 KERNEL_ATOL = 1e-5
 NCONTRIB_AGREE = 0.9999
 # The backward and the segment sum take their sums in another order than
-# the plain version: the backward's 256-pixel shuffle tree, each plane to
-# 1e-5 of its largest value; the segment sum against index_add_'s atomics,
-# to 1e-6 of the sum of |terms| of each segment (fp32 rounding grows with a
-# segment's length).
+# the plain version: the backward's 256-pixel reduction (a transposed warp
+# butterfly, then the warps in order), its FMAs and one reciprocal of
+# 1 - alpha for two divisions, each plane to 1e-5 of its largest value; the
+# segment sum against index_add_'s atomics, to 1e-6 of the sum of |terms| of
+# each segment (fp32 rounding grows with a segment's length).
 KERNEL_RSUM = 1e-5
 KERNEL_RSEG = 1e-6
 # The eval path on the card against the CPU, as tests/test_torch_eval.py
@@ -371,25 +385,54 @@ def view_prep_bins(params, alive, cam, dev, max_per_tile, stages=None):
     return prep, bins
 
 
+def _slot_samples(pack, gids, start, live, px, py, block_h):
+    """power and alpha of slot k of every tile (``start`` = tile_start + k)
+    at its 256 pixels, and (nt, warps) whether the slot's box of applicable
+    pixels (``composite.pixel_box``) meets each warp's pixels: 8-wide blocks
+    ``block_h`` rows tall, two across the tile, in warp order."""
+    att = pack[gids[torch.where(live, start, 0)].long()]
+    dx, dy = px - att[:, 0:1], py - att[:, 1:2]
+    power = (-0.5 * (att[:, 2:3] * dx * dx + att[:, 4:5] * dy * dy)
+             - att[:, 3:4] * dx * dy)
+    alpha = torch.clamp_max(att[:, 8:9] * torch.exp(power),
+                            composite.ALPHA_MAX)
+    box = composite.pixel_box(att)
+    w = torch.arange(2 * TILE // block_h, device=pack.device)
+    sx = px[:, :1] + 8 * (w % 2)
+    sy = py[:, :1] + block_h * (w // 2)
+    meets = ((box[:, 1:2] >= sx) & (box[:, 0:1] <= sx + 7)
+             & (box[:, 3:4] >= sy) & (box[:, 2:3] <= sy + block_h - 1))
+    return power, alpha, meets
+
+
+def warp_of_pixel(block_h: int, device) -> torch.Tensor:
+    """(256,) the warp that owns each pixel of a tile, for 8 x ``block_h``
+    warp blocks as ``_slot_samples`` lays them out."""
+    lane = torch.arange(TILE * TILE, device=device)
+    return (lane % TILE) // 8 + 2 * ((lane // TILE) // block_h)
+
+
 def blend_work(pack, gids, tile_start, tile_count, tiles_x):
     """What the blend must do for these inputs, slot by slot as the plain
     version walks them: samples evaluated (pixel not yet done), of those
     with power <= 0 (an expf), with alpha >= 1/255 (tested against the
-    stop) and applied."""
+    stop) and applied; the same four over the samples of the (warp, slot)
+    pairs whose box meets the forward kernel's 8x4-pixel warp (the kernel
+    walks only these pairs, the box test settles the rest); and the
+    (warp, slot) pairs, in all and walked. Checks that every tested sample
+    lies in a walked pair."""
     px, py = composite.pixel_coords(tile_start.shape[0], tiles_x,
                                      pack.device)
+    owner = warp_of_pixel(4, pack.device)
     T = torch.ones_like(px)
     done = torch.zeros_like(px, dtype=torch.bool)
     start, count = tile_start.long(), tile_count.long()
-    work = torch.zeros(4, dtype=torch.int64, device=pack.device)
-    for k in range(int(count.max())):
+    work = torch.zeros(10, dtype=torch.int64, device=pack.device)
+    for k in range(int(count.max()) if count.numel() else 0):
         live = k < count
-        att = pack[gids[torch.where(live, start + k, 0)].long()]
-        dx, dy = px - att[:, 0:1], py - att[:, 1:2]
-        power = (-0.5 * (att[:, 2:3] * dx * dx + att[:, 4:5] * dy * dy)
-                 - att[:, 3:4] * dx * dy)
-        alpha = torch.clamp_max(att[:, 8:9] * torch.exp(power),
-                                composite.ALPHA_MAX)
+        power, alpha, meets = _slot_samples(pack, gids, start + k, live, px,
+                                            py, 4)
+        walked = live[:, None] & meets
         ev = live[:, None] & ~done
         ex = ev & (power <= 0)
         ok = ex & (alpha >= composite.ALPHA_MIN)
@@ -398,8 +441,112 @@ def blend_work(pack, gids, tile_start, tile_count, tiles_x):
         app = ok & ~stop
         done |= stop
         T = torch.where(app, test_t, T)
-        work += torch.stack([ev.sum(), ex.sum(), ok.sum(), app.sum()])
-    return [int(v) for v in work]
+        each = (ev, ex, ok, app)
+        work += torch.stack([m.sum() for m in each]
+                            + [(m & walked[:, owner]).sum() for m in each]
+                            + [live.sum() * meets.shape[1], walked.sum()])
+    work = [int(v) for v in work]
+    check(work[6:8] == work[2:4], f"the box holds every tested sample: {work}")
+    return work
+
+
+def bwd_work(pack, gids, tile_start, tile_count, tiles_x, n_contrib):
+    """What the backward must do for these inputs: samples re-evaluated
+    (slot < the pixel's n_contrib), of those with power <= 0 (an expf),
+    applied (alpha >= 1/255) and unclamped (alpha < 0.99); the same four
+    over the samples of the (warp, slot) pairs whose box meets the backward
+    kernel's 8x8-pixel warp (the kernel walks only these pairs); and the
+    (warp, slot) pairs below the warp's largest n_contrib, which the kernel
+    tests, in all and walked. Checks that every applied sample lies in a
+    walked pair."""
+    px, py = composite.pixel_coords(tile_start.shape[0], tiles_x,
+                                     pack.device)
+    start, count = tile_start.long(), tile_count.long()
+    nc = n_contrib.long()
+    nmax = torch.minimum(nc.max(dim=1).values, count)
+    owner = warp_of_pixel(8, pack.device)
+    warp_nc = torch.stack([nc[:, owner == w].max(dim=1).values
+                           for w in range(4)], dim=1)
+    warp_nc = torch.minimum(warp_nc, nmax[:, None])
+    work = torch.zeros(10, dtype=torch.int64, device=pack.device)
+    for k in range(int(nmax.max()) if nmax.numel() else 0):
+        live = k < nmax
+        power, alpha, meets = _slot_samples(pack, gids, start + k, live, px,
+                                            py, 8)
+        tested = k < warp_nc
+        walked = tested & meets
+        ev = live[:, None] & (k < nc)
+        ex = ev & (power <= 0)
+        app = ex & (alpha >= composite.ALPHA_MIN)
+        unc = app & (alpha < composite.ALPHA_MAX)
+        each = (ev, ex, app, unc)
+        work += torch.stack([m.sum() for m in each]
+                            + [(m & walked[:, owner]).sum() for m in each]
+                            + [tested.sum(), walked.sum()])
+    work = [int(v) for v in work]
+    check(work[6:8] == work[2:4],
+          f"the box holds every applied sample: {work}")
+    return work
+
+
+# fp32 operations, counted on the plain per-pixel loop (one per add, mul,
+# compare or division, an expf as 1), over the samples of the walked
+# (warp, slot) pairs; the samples the box test passes over need none of
+# them, and the test itself is 4 compares per (warp, slot) pair. The dense
+# count charges every sample the plain loop evaluates (PR 4's bound).
+BOX_TEST_OPS = 4
+
+
+def fwd_bound(pack, gids, tile_start, work) -> dict:
+    """The forward's bound on these inputs (``blend_work``'s counts)."""
+    ev, ex, ok, app, wev, wex, _, _, slots, _ = work
+    nt = tile_start.shape[0]
+    # bytes: each referenced attribute row, the pair list and the ranges
+    # read once; color, t_fin and n_contrib written once
+    n_rows = int(torch.unique(gids).numel())
+    nbytes = 36 * n_rows + 4 * gids.numel() + 8 * nt + 20 * nt * TILE * TILE
+    # 12 per evaluated sample, 4 more with an expf, 3 more tested, 7 more
+    # applied
+    ops = (12 * wev + 4 * wex + 3 * ok + 7 * app + BOX_TEST_OPS * slots)
+    dense = 12 * ev + 4 * ex + 3 * ok + 7 * app
+    return dict(bound(nbytes, ops),
+                dense_bound_ms=bound(nbytes, dense)["bound_ms"])
+
+
+def bwd_bound(gids, tile_start, work) -> dict:
+    """The backward's bound on these inputs (``bwd_work``'s counts)."""
+    ev, ex, app, unc, wev, wex, _, _, slots, _ = work
+    nt = tile_start.shape[0]
+    n_pix = nt * TILE * TILE
+    n_used = int(torch.unique(gids).numel())
+    # bytes: referenced attribute rows, the pair list and ranges, per pixel
+    # t_fin, n_contrib, 3 colour and 1 t_fin cotangents read once; one
+    # 36-byte row per pair written once
+    nbytes = (36 * n_used + 4 * gids.numel() + 8 * nt + 24 * n_pix
+              + 36 * gids.numel())
+    # 12 per re-evaluated sample, 4 more with an expf, 18 more applied, 21
+    # more unclamped; and one add per nonzero term into its pair's row: r,
+    # g, b for every applied sample, the 6 alpha terms only unclamped
+    applied = (18 + 3) * app + (21 + 6) * unc
+    ops = 12 * wev + 4 * wex + applied + BOX_TEST_OPS * slots
+    dense = 12 * ev + 4 * ex + applied
+    return dict(bound(nbytes, ops),
+                dense_bound_ms=bound(nbytes, dense)["bound_ms"])
+
+
+def bound(nbytes: int, ops: int) -> dict:
+    """The least time for the work on one H100, and what sets it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "bytes": nbytes, "ops": ops, "bytes_ms": t_bytes, "ops_ms": t_ops}
+
+
+def _bound_text(b: dict) -> str:
+    return (f"bytes {b['bytes']} ({b['bytes_ms']:.4f} ms), fp32 ops "
+            f"{b['ops']} ({b['ops_ms']:.4f} ms), dense bound "
+            f"{b['dense_bound_ms']:.4f} ms")
 
 
 def cuda_ms(fn, reps: int, warm: int = 2) -> float:
@@ -433,30 +580,20 @@ def composite_checks(args, bins) -> dict:
     ms = cuda_ms(lambda: composite.composite_fwd(*args), reps=50)
     plain_ms = cuda_ms(lambda: composite.composite_fwd_plain(*args), reps=2,
                        warm=1)
-    nt = start.shape[0]
-    ev, ex, ok, app = blend_work(*args)
-    # bytes: each referenced attribute row, the pair list and the ranges
-    # read once; color, t_fin and n_contrib written once
-    n_rows = int(torch.unique(gids).numel())
-    nbytes = 36 * n_rows + 4 * gids.numel() + 8 * nt + 20 * nt * TILE * TILE
-    # fp32 operations (kernel source, one per add/mul/compare, expf as 1):
-    # 12 per evaluated sample, 4 more with an expf, 3 more tested, 7 more
-    # applied
-    ops = 12 * ev + 4 * ex + 3 * ok + 7 * app
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    work = blend_work(*args)
+    b = fwd_bound(pack, gids, start, work)
     log(f"blend work: n_pairs {bins.n_pairs}, max_tile_load "
         f"{int(bins.max_tile_load)}, samples evaluated / expf / tested / "
-        f"applied {[ev, ex, ok, app]}, bytes {nbytes} ({t_bytes:.4f} ms), "
-        f"fp32 ops {ops} ({t_ops:.4f} ms)")
-    log(f"composite_fwd {ms:.4f} ms, plain {plain_ms:.3f} ms")
-    return {"max_abs_err": err, "n_contrib_agree": agree, "ms": ms,
-            "kernel_ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes > t_ops else "operations",
-            "library_ms": None, "bytes": nbytes, "ops": ops,
-            "n_pairs": bins.n_pairs,
-            "max_tile_load": int(bins.max_tile_load)}
+        f"applied, the same in walked (warp, slot) pairs, warp-slots / "
+        f"walked {work}; passed over by the box {work[0] - work[4]}; "
+        f"{_bound_text(b)}")
+    log(f"composite_fwd {ms:.4f} ms ({b['bound_ms'] / ms:.1%} of its bound, "
+        f"{b['dense_bound_ms'] / ms:.1%} of the dense one), plain "
+        f"{plain_ms:.3f} ms")
+    return dict(b, max_abs_err=err, n_contrib_agree=agree, ms=ms,
+                kernel_ms=ms, plain_ms=plain_ms, library_ms=None,
+                samples=work, n_pairs=bins.n_pairs,
+                max_tile_load=int(bins.max_tile_load))
 
 
 def render_times(params, alive, cams, dev, max_per_tile) -> dict:
@@ -754,32 +891,6 @@ def plane_rel(a, b) -> float:
                   / b.abs().amax(0).clamp_min(1e-30)).max())
 
 
-def bwd_work(pack, gids, tile_start, tile_count, tiles_x, n_contrib):
-    """What the backward must do for these inputs: samples re-evaluated
-    (slot < the pixel's n_contrib), of those with power <= 0 (an expf),
-    applied (alpha >= 1/255) and unclamped (alpha < 0.99)."""
-    px, py = composite.pixel_coords(tile_start.shape[0], tiles_x,
-                                     pack.device)
-    start, count = tile_start.long(), tile_count.long()
-    nc = n_contrib.long()
-    nmax = torch.minimum(nc.max(dim=1).values, count)
-    work = torch.zeros(4, dtype=torch.int64, device=pack.device)
-    for k in range(int(nmax.max())):
-        live = k < nmax
-        att = pack[gids[torch.where(live, start + k, 0)].long()]
-        dx, dy = px - att[:, 0:1], py - att[:, 1:2]
-        power = (-0.5 * (att[:, 2:3] * dx * dx + att[:, 4:5] * dy * dy)
-                 - att[:, 3:4] * dx * dy)
-        alpha = torch.clamp_max(att[:, 8:9] * torch.exp(power),
-                                composite.ALPHA_MAX)
-        ev = live[:, None] & (k < nc)
-        ex = ev & (power <= 0)
-        app = ex & (alpha >= composite.ALPHA_MIN)
-        unc = app & (alpha < composite.ALPHA_MAX)
-        work += torch.stack([ev.sum(), ex.sum(), app.sum(), unc.sum()])
-    return [int(v) for v in work]
-
-
 def composite_bwd_checks(args) -> dict:
     pack, gids, start, count, tiles_x, t_fin, n_contrib, gc, gt = args
     k_rows = composite.composite_bwd(*args)
@@ -798,31 +909,72 @@ def composite_bwd_checks(args) -> dict:
     ms = cuda_ms(lambda: composite.composite_bwd(*args), reps=20)
     plain_ms = cuda_ms(lambda: composite.composite_bwd_plain(*args), reps=1,
                        warm=1)
-    ev, ex, app, unc = bwd_work(pack, gids, start, count, tiles_x, n_contrib)
-    nt = start.shape[0]
-    n_pix = nt * TILE * TILE
-    n_used = int(torch.unique(gids).numel())
-    # bytes: referenced attribute rows, the pair list and ranges, per pixel
-    # t_fin, n_contrib, 3 colour and 1 t_fin cotangents read once; one
-    # 36-byte row per pair written once
-    nbytes = (36 * n_used + 4 * gids.numel() + 8 * nt + 24 * n_pix
-              + 36 * gids.numel())
-    # fp32 operations (kernel source, one per add/mul/compare/div, expf as
-    # 1): 12 per re-evaluated sample, 4 more with an expf, 18 more applied,
-    # 21 more unclamped; and one add per nonzero term into its pair's row:
-    # r, g, b for every applied sample, the 6 alpha terms only unclamped
-    ops = 12 * ev + 4 * ex + (18 + 3) * app + (21 + 6) * unc
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    log(f"backward work: samples re-evaluated / expf / applied / unclamped "
-        f"{[ev, ex, app, unc]}, bytes {nbytes} "
-        f"({t_bytes:.4f} ms), fp32 ops {ops} ({t_ops:.4f} ms)")
-    log(f"composite_bwd {ms:.4f} ms, plain {plain_ms:.3f} ms")
-    return {"max_abs_err": err, "plane_rel_err": rel, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes > t_ops else "operations",
-            "library_ms": None, "bytes": nbytes, "ops": ops,
-            "samples": [ev, ex, app, unc]}
+    work = bwd_work(pack, gids, start, count, tiles_x, n_contrib)
+    b = bwd_bound(gids, start, work)
+    log(f"backward work: samples re-evaluated / expf / applied / unclamped, "
+        f"the same in walked (warp, slot) pairs, warp-slots / walked "
+        f"{work}; passed over by the box {work[0] - work[4]}; "
+        f"{_bound_text(b)}")
+    log(f"composite_bwd {ms:.4f} ms ({b['bound_ms'] / ms:.1%} of its bound, "
+        f"{b['dense_bound_ms'] / ms:.1%} of the dense one), plain "
+        f"{plain_ms:.3f} ms")
+    return dict(b, max_abs_err=err, plane_rel_err=rel, ms=ms,
+                plain_ms=plain_ms, library_ms=None, samples=work)
+
+
+def real_block_checks(seed: int, dev) -> dict:
+    """``composite_fwd`` and ``composite_bwd`` at 1280x800 on tile loads
+    shaped like a real block's (``real_block_counts``: p50 960, p99 2100,
+    max 2640 pairs a tile; one seeded Gaussian per pair), held against
+    their plain versions as on the phase inputs, with their times, sample
+    counts and bounds; the backward's cotangents are seeded normals."""
+    tiles_x, tiles_y = W // TILE, H // TILE
+    rng = np.random.default_rng(seed)
+    args = blend_inputs(rng, tiles_x, real_block_counts(
+        rng, tiles_x * tiles_y), dev)
+    pack, gids, start, count, _ = args
+    color, t_fin, n_contrib = composite.composite_fwd(*args)
+    p_color, p_tfin, p_nc = composite.composite_fwd_plain(*args)
+    torch.cuda.synchronize()
+    err = max(float((color - p_color).abs().max()),
+              float((t_fin - p_tfin).abs().max()))
+    agree = float((n_contrib == p_nc).float().mean())
+    check(err <= KERNEL_ATOL and agree >= NCONTRIB_AGREE,
+          f"composite_fwd vs plain on real-block loads: {err}, {agree}")
+    fwd_ms = cuda_ms(lambda: composite.composite_fwd(*args), reps=20)
+    work = blend_work(*args)
+    fwd = dict(fwd_bound(pack, gids, start, work), ms=fwd_ms,
+               max_abs_err=err, n_contrib_agree=agree, samples=work)
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bargs = (*args, t_fin, n_contrib,
+             torch.randn(color.shape, generator=g, device=dev),
+             torch.randn(t_fin.shape, generator=g, device=dev))
+    rows = composite.composite_bwd(*bargs)
+    plain = composite.composite_bwd_plain(*bargs)
+    again = composite.composite_bwd(*bargs)
+    torch.cuda.synchronize()
+    rel = plane_rel(rows, plain)
+    check(rel <= KERNEL_RSUM and torch.equal(rows, again),
+          f"composite_bwd vs plain on real-block loads: {rel}, deterministic "
+          f"{bool(torch.equal(rows, again))}")
+    bwd_ms = cuda_ms(lambda: composite.composite_bwd(*bargs), reps=20)
+    work = bwd_work(pack, gids, start, count, args[4], n_contrib)
+    bwd = dict(bwd_bound(gids, start, work), ms=bwd_ms,
+               max_abs_err=float((rows - plain).abs().max()),
+               plane_rel_err=rel, samples=work)
+    loads = count.float()
+    shape = {"n_pairs": int(gids.numel()), "tiles": int(count.numel()),
+             "p50": float(loads.quantile(0.5)),
+             "p99": float(loads.quantile(0.99)), "max": int(count.max())}
+    for name, r in (("composite_fwd", fwd), ("composite_bwd", bwd)):
+        log(f"{name} on real-block loads {shape}: {r['ms']:.4f} ms "
+            f"({r['bound_ms'] / r['ms']:.1%} of its {r['bound_ms']:.4f} ms "
+            f"{r['bound_by']} bound, {r['dense_bound_ms'] / r['ms']:.1%} of "
+            f"the dense one), samples {r['samples']}, "
+            f"err {r['max_abs_err']:.3e}")
+    return {"composite_fwd": dict(fwd, loads=shape),
+            "composite_bwd": dict(bwd, loads=shape)}
 
 
 def segsum_checks(args) -> dict:
@@ -1054,6 +1206,20 @@ def full_eval_path(root: Path, seed: int, dev) -> dict:
             "means": {Path(k).parts[-3]: v["mean"] for k, v in res.items()}}
 
 
+def full_eval_spread(runs: int, seed: int, deterministic: bool, dev) -> dict:
+    """Phase 14 ``runs`` times on the scene of ``seed``, with
+    ``torch.backends.cudnn.deterministic`` set as asked: each scene's PSNR
+    and SSIM in every run."""
+    torch.backends.cudnn.deterministic = deterministic
+    SCRATCH.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=SCRATCH) as tmp:
+        means = [full_eval_path(Path(tmp) / f"run{i}", seed, dev)["means"]
+                 for i in range(runs)]
+    return {"full_eval_runs": runs, "cudnn_deterministic": deterministic,
+            **{k: {s: [m[s][k] for m in means] for s in means[0]}
+               for k in ("PSNR", "SSIM")}}
+
+
 # --------------------------------------------------------------------------
 # 15. the gather experiment
 # --------------------------------------------------------------------------
@@ -1116,6 +1282,11 @@ def gather_checks(runs: dict, dev) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--full-eval-runs", type=int, default=0,
+                    help="run only phase 14, this many times")
+    ap.add_argument("--cudnn-deterministic", action="store_true",
+                    help="with --full-eval-runs: cuDNN's deterministic "
+                    "algorithms only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this script runs only on one",
@@ -1124,6 +1295,10 @@ def main(argv=None) -> int:
     smi = card()
     build()
     dev = torch.device("cuda")
+    if args.full_eval_runs:
+        print(json.dumps(full_eval_spread(args.full_eval_runs, args.seed + 1,
+                                          args.cudnn_deterministic, dev)))
+        return 0
 
     SCRATCH.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=SCRATCH) as tmp:
@@ -1172,6 +1347,8 @@ def main(argv=None) -> int:
         measured["sorted_segment_sum"] = segsum_checks(
             inputs["sorted_segment_sum"])
         del inputs, state
+        for name, r in real_block_checks(args.seed, dev).items():
+            measured[name]["real_block"] = r
         small = cpu_vs_cuda_step(params, alive, cam, gt, 40_000, args.seed)
 
         weights = write_lpips_bundle(Path(tmp) / "lpips.npz", args.seed)

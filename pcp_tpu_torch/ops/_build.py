@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled with
 ``nvcc`` for ``sm_90a`` into ``pcp_tpu_torch/_build/<name>-<hash>.so`` (the
-hash covers the source and the flags, so an edit rebuilds) and loaded with
+hash covers the source, every header in ``csrc/`` and the flags, so an edit
+to any of them rebuilds) and loaded with
 ``ctypes``. Builds happen at first use, never at import, and only from the
 sources in this package. ``build_all`` starts one ``nvcc`` per source, all
 at once.
@@ -48,8 +49,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -23,6 +23,14 @@ color (nt, 3, 256), t_fin (nt, 256) f32 and n_contrib (nt, 256) int32.
 The backward returns one gradient row per pair, (n_pairs, 9) f32 in
 pair-list order with the rows of ``pack``; pairs past a tile's
 ``tile_count`` get zero rows.
+
+Both kernels take each sample's decision from ``csrc/blend_math.cuh``. A
+row's log-domain threshold ``logf(1/255 / op) - SKIP_MARGIN`` (+inf for
+op <= 0) lies below every power the exact test applies and sizes the box
+of the pixels the row can apply; a warp passes over a row whose box misses
+its pixels. ``skip_threshold`` and ``pixel_box`` mirror the rules for the
+tests and ``chip_smoke.py``'s work counts; nothing on the blend's path
+calls them.
 """
 
 from __future__ import annotations
@@ -41,6 +49,8 @@ ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_EPS = 1.0e-4
 DENOM_MIN = 1.0 - ALPHA_MAX   # the backward's clamp of 1 - alpha
+SKIP_MARGIN = 1.0e-3          # blend_math.cuh kSkipMargin
+MAX_COND = 1.0e4              # blend_math.cuh kMaxCond
 
 # Kernel launches per kernel name; each wrapper adds one where it launches.
 LAUNCHES: collections.Counter = collections.Counter()
@@ -52,6 +62,37 @@ def pack_attributes(prep) -> torch.Tensor:
     return torch.cat(
         [m, c, rgb, prep["opacity"][:, None]], dim=1
     ).to(torch.float32).contiguous()
+
+
+def skip_threshold(op: torch.Tensor) -> torch.Tensor:
+    """The kernels' per-row skip threshold in fp32: log(ALPHA_MIN / op) -
+    SKIP_MARGIN, +inf where op <= 0 (blend_math.cuh ``prepare_row``)."""
+    op = op.to(torch.float32)
+    thr = torch.log(torch.tensor(ALPHA_MIN, dtype=torch.float32) / op) \
+        - torch.tensor(SKIP_MARGIN, dtype=torch.float32)
+    return torch.where(op <= 0.0, torch.full_like(thr, float("inf")), thr)
+
+
+def pixel_box(pack: torch.Tensor) -> torch.Tensor:
+    """(N, 4) [xlo, xhi, ylo, yhi] per row of ``pack``: the box that holds
+    every pixel the row can apply, in fp32 as blend_math.cuh
+    ``sample_box`` computes it (empty where thr > 0, the whole plane for a
+    conic that is not positive definite or beyond MAX_COND)."""
+    f = torch.float32
+    mx, my, a, b, c = (pack[:, i].to(f) for i in range(5))
+    thr = skip_threshold(pack[:, 8])
+    det = a * c - b * b
+    half = 0.5 * (a - c)
+    lmax = 0.5 * (a + c) + torch.sqrt(half * half + b * b)
+    ok = (a > 0) & (c > 0) & (det > 0) & (lmax * lmax <= MAX_COND * det)
+    t2 = 2.0 * (0.01 - 1.01 * thr)
+    rx = torch.sqrt(t2 * c / det) * 1.001 + 0.01
+    ry = torch.sqrt(t2 * a / det) * 1.001 + 0.01
+    box = torch.stack([mx - rx, mx + rx, my - ry, my + ry], dim=1)
+    inf = float("inf")
+    plane = torch.tensor([-inf, inf, -inf, inf], dtype=f, device=pack.device)
+    box = torch.where(ok[:, None], box, plane)
+    return torch.where((thr > 0)[:, None], -plane, box)
 
 
 def pixel_coords(num_tiles, tiles_x, device):

@@ -14,16 +14,23 @@ import torch
 from pcp_tpu_torch.ops import composite, segsum
 from pcp_tpu_torch.ops.projection import CameraIntrin
 from pcp_tpu_torch.ops.rasterize import rasterize
+from pcp_tpu_torch.tools.blend_inputs import blend_inputs, real_block_counts
 
 pytestmark = pytest.mark.cuda
 
-# The kernel runs the plain version's fp32 operations in the same order
-# (built with --fmad=false); expf is the only other rounding.
+# The forward kernel takes every decision (power, the 1/255 test, the
+# T < 1e-4 stop) and T with the plain version's fp32 rounding (built with
+# --fmad=false; a warp passes over a row only where its box, which holds
+# every applied pixel, misses the warp), so t_fin and n_contrib agree but
+# where expf rounds otherwise; its colour sums are FMAs, a few ulp from the
+# plain version's mul-then-add.
 ATOL = 1e-5
 # Sums taken in another order than the plain version's: the backward's
-# 256-pixel reductions (a shuffle tree) to 1e-5 of each plane's largest
-# value; the segment sum against index_add_'s atomics to 1e-6 of the sum of
-# |terms| of each segment (fp32 rounding grows with a segment's length).
+# 256-pixel reductions (a transposed warp butterfly, then the warps in
+# order) and its FMAs and one reciprocal of 1 - alpha in place of two
+# divisions, to 1e-5 of each plane's largest value; the segment sum against
+# index_add_'s atomics to 1e-6 of the sum of |terms| of each segment (fp32
+# rounding grows with a segment's length).
 RSUM = 1e-5
 RSEG = 1e-6
 
@@ -50,33 +57,10 @@ def _bins(seed, tiles_x, tiles_y, max_count, dev):
     """Seeded per-Gaussian rows, a shuffled pair list and tile ranges, with
     an empty tile and lists longer than one 256-slot batch."""
     rng = np.random.default_rng(seed)
-    nt = tiles_x * tiles_y
-    counts = rng.integers(0, max_count + 1, nt)
+    counts = rng.integers(0, max_count + 1, tiles_x * tiles_y)
     counts[0] = 0
     counts[-1] = max_count
-    n_pairs = int(counts.sum())
-    tile = np.repeat(np.arange(nt), counts)
-    x0 = (tile % tiles_x) * 16.0
-    y0 = (tile // tiles_x) * 16.0
-    sig = rng.uniform(1.5, 8.0, (2, n_pairs))
-    th = rng.uniform(0, np.pi, n_pairs)
-    c, s = np.cos(th), np.sin(th)
-    cxx = (c * sig[0]) ** 2 + (s * sig[1]) ** 2
-    cyy = (s * sig[0]) ** 2 + (c * sig[1]) ** 2
-    cxy = c * s * (sig[0] ** 2 - sig[1] ** 2)
-    det = cxx * cyy - cxy * cxy
-    rows = np.stack([
-        x0 + rng.uniform(-6, 22, n_pairs), y0 + rng.uniform(-6, 22, n_pairs),
-        cyy / det, -cxy / det, cxx / det, *rng.uniform(0, 1, (3, n_pairs)),
-        rng.uniform(0.0, 0.9, n_pairs),
-    ], -1).astype(np.float32)
-    perm = rng.permutation(n_pairs)
-    pack = np.empty_like(rows)
-    pack[perm] = rows
-    start = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    as_t = lambda a, dt: torch.tensor(a, dtype=dt, device=dev)
-    return (as_t(pack, torch.float32), as_t(perm, torch.int32),
-            as_t(start, torch.int32), as_t(counts, torch.int32), tiles_x)
+    return blend_inputs(rng, tiles_x, counts, dev)
 
 
 @pytest.mark.parametrize("seed,max_count", [(0, 40), (1, 700), (2, 1500)])
@@ -163,6 +147,73 @@ def test_composite_bwd_matches_plain(card, seed, max_count):
     # deterministic: a second launch gives the same bits
     again = composite.composite_bwd(*args, t_fin, n_contrib, gcolor, gtfin)
     assert torch.equal(rows, again)
+
+
+def _blend_case(case, dev):
+    """Blend inputs of the three shapes the redesigned kernels must hold:
+    tile loads of a real block; Gaussians wide and opaque enough that most
+    applied samples clamp at alpha = 0.99; a third of the rows dead."""
+    rng = np.random.default_rng({"real_block": 20, "clamped": 21,
+                                 "dead": 22}[case])
+    nt = 40
+    if case == "real_block":
+        return blend_inputs(rng, 8, real_block_counts(rng, nt), dev)
+    counts = rng.integers(0, 701, nt)
+    counts[-1] = 700
+    if case == "clamped":
+        return blend_inputs(rng, 8, counts, dev, opacity=(0.995, 1.0),
+                            sigma=(20.0, 3000.0))
+    return blend_inputs(rng, 8, counts, dev, dead=1 / 3)
+
+
+def _first_slot_alpha(pack, gids, tile_start, tile_count, tiles_x):
+    """alpha = min(0.99, op exp(power)) of each tile's first slot at its
+    256 pixels, where power <= 0 (tiles with pairs only)."""
+    live = tile_count > 0
+    att = pack[gids[tile_start[live].long()].long()]
+    px, py = composite.pixel_coords(tile_start.shape[0], tiles_x, pack.device)
+    dx, dy = px[live] - att[:, 0:1], py[live] - att[:, 1:2]
+    power = (-0.5 * (att[:, 2:3] * dx * dx + att[:, 4:5] * dy * dy)
+             - att[:, 3:4] * dx * dy)
+    alpha = torch.clamp_max(att[:, 8:9] * torch.exp(power),
+                            composite.ALPHA_MAX)
+    return alpha[power <= 0]
+
+
+@pytest.mark.parametrize("case", ["real_block", "clamped", "dead"])
+def test_blend_kernels_match_plain_on_hard_cases(card, case):
+    args = _blend_case(case, card)
+    pack, count = args[0], args[3]
+    color, t_fin, n_contrib = composite.composite_fwd(*args)
+    p_color, p_tfin, p_nc = composite.composite_fwd_plain(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(color, p_color, rtol=0, atol=ATOL)
+    torch.testing.assert_close(t_fin, p_tfin, rtol=0, atol=ATOL)
+    assert float((n_contrib == p_nc).float().mean()) >= 0.9999
+    g = torch.Generator(device=card).manual_seed(5)
+    gcolor = torch.randn(color.shape, generator=g, device=card)
+    gtfin = torch.randn(t_fin.shape, generator=g, device=card)
+    bwd = (*args, p_tfin, p_nc, gcolor, gtfin)
+    rows = composite.composite_bwd(*bwd)
+    plain = composite.composite_bwd_plain(*bwd)
+    again = composite.composite_bwd(*bwd)
+    torch.cuda.synchronize()
+    assert float(_plane_rel(rows, plain)) <= RSUM
+    assert torch.equal(rows, again)
+    # each case reaches what it is meant to
+    if case == "real_block":
+        assert int(count.max()) == 2640 and float(count.float().median()) > 700
+        assert float(plain[:, 0].abs().max()) > 0
+    elif case == "clamped":
+        alpha = _first_slot_alpha(*args)
+        assert float((alpha == composite.ALPHA_MAX).float().mean()) > 0.5
+        assert int(((alpha < composite.ALPHA_MAX)
+                    & (alpha >= composite.ALPHA_MIN)).sum()) > 0
+        assert float(plain[:, 8].abs().max()) > 0
+    else:
+        dead = pack[args[1].long(), 8] == 0
+        assert 0.25 < float(dead.float().mean()) < 0.4
+        assert (rows[dead] == 0).all()
 
 
 @pytest.mark.parametrize("case", ["random", "skewed", "pads"])
