@@ -9,7 +9,7 @@ Run it from the root of a checkout: it builds the kernels from the sources
 there, needs no install step and nothing from the network. Phases:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
-   the TF32 flags;
+   the TF32 and cuDNN flags ``resolve_device`` sets;
 2. build every kernel of the paths (one ``nvcc`` per source, together);
 3. write a synthetic scene from ``--seed``: a COLMAP binary model of
    1280x800 cameras with GT PNGs and ``N_GAUSSIANS`` points, and a Gaussian
@@ -28,12 +28,16 @@ there, needs no install step and nothing from the network. Phases:
    set to 0 just before and read just after;
 9. a full-width train step at SH degree 3 on the 720k PLY: the warm step
    time, each stage's device time from the profiler ranges that the step
-   marks, device busy time and idle share;
-10. ``composite_bwd`` and ``sorted_segment_sum`` against their plain
-    versions on the inputs they got in that step, with their times and
-    bounds; then ``composite_fwd`` and ``composite_bwd`` against their plain
-    versions on tile loads shaped like a real block's (p50 960, p99 2100,
-    max 2640 pairs a tile) at 1280x800, with their times and bounds;
+   marks, device busy time and idle share; then the warm step and device
+   busy time again with ``cudnn.deterministic`` forced off after each
+   ``resolve_device``: what determinism costs;
+10. ``composite_bwd`` and the segment-sum stage (``pack_gradient``:
+    ``gathered_segment_sum``, which inverts the sort's permutation and sums
+    each Gaussian's rows through it) against their plain versions on the
+    inputs they got in that step, with their times and bounds; then
+    ``composite_fwd`` and ``composite_bwd`` against their plain versions on
+    tile loads shaped like a real block's (p50 960, p99 2100, max 2640
+    pairs a tile) at 1280x800, with their times and bounds;
 11. one train step of a small scene on the CPU and on the card;
 12. the eval path: ``pcp_tpu_torch.cli.metrics.main`` on ``cuda`` over the
     8 test views that phase 4 rendered, with a synthetic LPIPS bundle drawn
@@ -46,7 +50,8 @@ there, needs no install step and nothing from the network. Phases:
     metrics for ``FULL_EVAL_ITERS`` iterations;
 15. the gather experiment (``pcp_tpu_torch.tools.exp_r2 gather``) at its
     default shapes and at N = 2^20, each of its three forms held bit for
-    bit to the plain version; ``sort`` and ``xlagather`` once;
+    bit to the plain version, with the byte bound and the plane form's
+    sector floor; ``sort`` and ``xlagather`` once;
 16. one ``{"kernels": [...]}`` line, the card's name and power limit, and
     the ``{"ok": true, ...}`` line last.
 
@@ -56,11 +61,12 @@ before and read just after.
 Any failed check raises: the script then exits non-zero and prints no
 result line. Without a CUDA card it exits 1 before doing anything.
 
-    python3 chip_smoke.py --full-eval-runs 20 [--cudnn-deterministic]
+    python3 chip_smoke.py --full-eval-runs 20
 
 runs phases 1, 2 and then only phase 14, that many times on the same
-scene, and prints each run's PSNR and SSIM per scene as one JSON line:
-the spread of ``full_eval``'s metrics from run to run.
+scene, prints each run's PSNR and SSIM per scene as one JSON line, and
+fails unless every run of a scene gives the same bits: the witness that
+training repeats on the card.
 """
 
 from __future__ import annotations
@@ -69,6 +75,7 @@ import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -96,7 +103,7 @@ from pcp_tpu_torch.ops import _build
 from pcp_tpu_torch.ops import composite, segsum
 from pcp_tpu_torch.ops.gather import LAYOUTS, gather_pack, gather_pack_plain
 from pcp_tpu_torch.ops import rasterize as rasterize_mod
-from pcp_tpu_torch.ops.binning import bin_gaussians
+from pcp_tpu_torch.ops.binning import bin_gaussians, gaussian_major
 from pcp_tpu_torch.ops.projection import TILE, preprocess
 from pcp_tpu_torch.ops.rasterize import rasterize, untile
 from pcp_tpu_torch.scene import cameras as cam_mod
@@ -174,6 +181,8 @@ KERNEL_RSEG = 1e-6
 # holds the port against the JAX package: PSNR in dB, SSIM absolute, LPIPS
 # relative.
 EVAL_TOL = {"PSNR": 1e-3, "SSIM": 1e-5, "LPIPS": 1e-5}
+PROFILER_ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
+                       torch.profiler.ProfilerActivity.CUDA]
 
 
 def log(msg: str) -> None:
@@ -211,9 +220,14 @@ def card() -> str:
         f"{torch.cuda.get_device_name(dev)}, "
         f"{torch.cuda.device_count()} card(s)")
     log(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
-        f"cudnn {torch.backends.cudnn.allow_tf32}")
+        f"cudnn {torch.backends.cudnn.allow_tf32}; cudnn deterministic "
+        f"{torch.backends.cudnn.deterministic}, benchmark "
+        f"{torch.backends.cudnn.benchmark}")
     check(not torch.backends.cuda.matmul.allow_tf32
           and not torch.backends.cudnn.allow_tf32, "TF32 is off")
+    check(torch.backends.cudnn.deterministic
+          and not torch.backends.cudnn.benchmark,
+          "cuDNN is held to deterministic algorithms")
     return smi
 
 
@@ -550,11 +564,16 @@ def _bound_text(b: dict) -> str:
 
 
 def cuda_ms(fn, reps: int, warm: int = 2) -> float:
+    """Mean device ms of ``fn()`` over ``reps`` calls after ``warm``. The
+    timed calls queue behind a spin kernel (``exp_r2``'s), so the host's
+    per-call work is hidden and the events time the launches back to
+    back."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(exp_r2.SPIN_CYCLES)
     t0.record()
     for _ in range(reps):
         fn()
@@ -635,9 +654,7 @@ def render_times(params, alive, cams, dev, max_per_tile) -> dict:
         stages["image_to_host"] += time.perf_counter() - t
     stages = {k: v * 1e3 / len(cams) for k, v in stages.items()}
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=PROFILER_ACTIVITIES) as prof:
         one_pass()
     rows = device_kernels(prof, len(cams))
     busy = sum(ms for _, ms in rows)
@@ -770,7 +787,7 @@ STAGES = ("preprocess", "binning", "composite_fwd", "appearance + loss",
 REST = "the rest: preprocess, appearance and loss backward (autograd)"
 OWN_KERNELS = {"composite_fwd": "composite_fwd_kernel",
                "composite_bwd": "composite_bwd_kernel",
-               "segment_sum": "segsum_kernel"}
+               "segment_sum": "segsum_"}   # the inverse and the sum
 
 
 def device_kernels(prof, per: int) -> list:
@@ -784,10 +801,11 @@ def device_kernels(prof, per: int) -> list:
 
 
 def capture_backward(run) -> dict:
-    """Calls ``run()`` with the backward's two kernel wrappers, as
-    ``ops.rasterize`` calls them, recording the arguments each got."""
+    """Calls ``run()`` with the backward's two stages, ``composite_bwd`` and
+    the segment-sum stage ``pack_gradient``, as ``ops.rasterize`` calls
+    them, recording the arguments each got."""
     seen, real = {}, {"composite_bwd": rasterize_mod.composite_bwd,
-                      "sorted_segment_sum": rasterize_mod.sorted_segment_sum}
+                      "pack_gradient": rasterize_mod.pack_gradient}
 
     def spy(name):
         def call(*args):
@@ -806,11 +824,71 @@ def capture_backward(run) -> dict:
     return seen
 
 
+def timed_steps(step) -> tuple:
+    """(ms of STEP_REPS synchronised warm steps, the last step's metrics),
+    after 3 steps of warm-up."""
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(STEP_REPS):
+        t0 = time.perf_counter()
+        _, m = step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, m
+
+
+def profiled_steps(step):
+    """A profiler run over 3 steps."""
+    with torch.profiler.profile(activities=PROFILER_ACTIVITIES) as prof:
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+    return prof
+
+
+def cudnn_free_cost(step, on_ms: float, on_busy: float) -> dict:
+    """The warm step and device busy with cuDNN free to pick
+    nondeterministic algorithms. Every ``rasterize`` call sets
+    ``cudnn.deterministic`` through ``resolve_device``, so it is forced off
+    right after each; the port's setting is restored after."""
+    real = rasterize_mod.resolve_device
+
+    def resolve(device=None):
+        dev = real(device)
+        torch.backends.cudnn.deterministic = False
+        return dev
+
+    try:
+        rasterize_mod.resolve_device = resolve
+        times, _ = timed_steps(step)
+        rows = device_kernels(profiled_steps(step), 3)
+    finally:
+        rasterize_mod.resolve_device = real
+        resolve_device("cuda")
+    check(torch.backends.cudnn.deterministic, "cuDNN deterministic again")
+    step_ms = statistics.median(times)
+    busy = sum(ms for _, ms in rows)
+    top = sorted(rows, key=lambda r: -r[1])[:5]
+    log(f"  cudnn.deterministic off: warm {step_ms:.3f} ms median of "
+        f"{[round(x, 3) for x in times]}, device busy {busy:.3f} ms/step; "
+        f"on (above): {on_ms:.3f} ms, busy {on_busy:.3f}: determinism costs "
+        f"{on_ms - step_ms:+.3f} ms a step, {on_busy - busy:+.3f} ms of "
+        f"device time")
+    for key, ms in top:
+        log(f"    {ms:8.3f} ms/step  {key[:90]}")
+    return {"step_ms": step_ms, "step_ms_all": times,
+            "device_busy_ms_per_step": busy,
+            "top_device_ms_per_step": [[k[:90], ms] for k, ms in top]}
+
+
 def train_times(state: TrainState, cam, gt, ocfg, extent: float) -> dict:
     """Warm train-step time (median of STEP_REPS, synchronised), peak
     memory, and from the profiler the device time of each stage, by kernel,
-    and the idle share of the warm step. Also returns the arguments the
-    backward's two kernels got in one more step."""
+    and the idle share of the warm step; the same two times with cuDNN's
+    nondeterministic algorithms allowed. Also returns the arguments the
+    backward's two stages got in one more step."""
     dev = state.alive.device
     viewmat, intrin = cam_mod.camera_tensors(cam, dev)
     bg = torch.zeros(3, device=dev)
@@ -821,25 +899,14 @@ def train_times(state: TrainState, cam, gt, ocfg, extent: float) -> dict:
             image_size=(cam.width, cam.height), sh_degree=SH_DEGREE,
             use_appearance=True)
 
-    for _ in range(3):
-        step()
+    step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    times = []
-    for _ in range(STEP_REPS):
-        t0 = time.perf_counter()
-        _, m = step()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
+    times, m = timed_steps(step)
     peak = torch.cuda.max_memory_allocated(dev)
     step_ms = statistics.median(times)
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(3):
-            step()
-        torch.cuda.synchronize()
+    prof = profiled_steps(step)
     rows = device_kernels(prof, 3)
     busy = sum(ms for _, ms in rows)
     stages = dict.fromkeys(STAGES, 0.0)
@@ -870,6 +937,7 @@ def train_times(state: TrainState, cam, gt, ocfg, extent: float) -> dict:
     for key, ms in top:
         log(f"  {ms:8.3f} ms/step  {key[:90]}")
     measured = busy > 0
+    free = cudnn_free_cost(step, step_ms, busy)
     inputs = capture_backward(step)
     return {"step_ms": step_ms, "step_ms_all": times,
             "stage_device_ms": stages, "n_pairs": m["n_pairs"],
@@ -877,7 +945,7 @@ def train_times(state: TrainState, cam, gt, ocfg, extent: float) -> dict:
             "device_busy_ms_per_step": busy if measured else None,
             "device_idle_share": 1 - busy / step_ms if measured else None,
             "top_device_ms_per_step": [[k[:90], ms] for k, ms in top],
-            "inputs": inputs}
+            "cudnn_nondeterministic": free, "inputs": inputs}
 
 
 # --------------------------------------------------------------------------
@@ -977,35 +1045,77 @@ def real_block_checks(seed: int, dev) -> dict:
             "composite_bwd": dict(bwd, loads=shape)}
 
 
-def segsum_checks(args) -> dict:
-    rows, gid, n, offsets = args
-    k_out = segsum.sorted_segment_sum(*args)
-    p_out = segsum.sorted_segment_sum_plain(rows, gid, n)
-    scale = segsum.sorted_segment_sum_plain(rows.abs(), gid, n)
+def segsum_checks(args, launches: int) -> dict:
+    """The segment-sum stage on the arguments ``pack_gradient`` got in a
+    real step: its kernel (``gathered_segment_sum`` on the pair-order rows
+    and the sort's permutation) against the plain twin (``gaussian_major``,
+    then ``sorted_segment_sum_plain``) and against itself; times of the
+    kernel (and, from the profiler, of its two CUDA kernels: the inverse
+    scatter and the sum), the whole stage, the plain twin, the unfolded
+    stage (the Gaussian-major scatter, then the gid-sorted entry of the
+    same sum kernel) and the library call (``index_add_`` of the pair-order
+    rows by their gids); and the bound beside that of the gid-sorted
+    kernel."""
+    rows, bins, n = args
+    k_args = (rows, bins.order, bins.offsets, n)
+    k_out = segsum.gathered_segment_sum(*k_args)
+    again = segsum.gathered_segment_sum(*k_args)
+    stage = rasterize_mod.pack_gradient(rows, bins, n)
+    ordered = gaussian_major(rows, bins.order)
+    p_out = segsum.sorted_segment_sum_plain(ordered, bins.pair_gid, n)
+    scale = segsum.sorted_segment_sum_plain(ordered.abs(), bins.pair_gid, n)
     torch.cuda.synchronize()
     err = float((k_out - p_out).abs().max())
     rel = float(((k_out - p_out).abs() / scale.clamp_min(1e-30)).max())
-    log(f"sorted_segment_sum vs plain: max_abs_err {err:.3e}, relative to "
-        f"each segment's sum of |terms| {rel:.3e} (tol {KERNEL_RSEG})")
-    check(rel <= KERNEL_RSEG, "sorted_segment_sum vs plain")
-    ms = cuda_ms(lambda: segsum.sorted_segment_sum(*args), reps=50)
-    plain_ms = cuda_ms(lambda: segsum.sorted_segment_sum_plain(rows, gid, n),
-                       reps=20)
+    log(f"gathered_segment_sum vs plain: max_abs_err {err:.3e}, relative to "
+        f"each segment's sum of |terms| {rel:.3e} (tol {KERNEL_RSEG}), "
+        f"deterministic {bool(torch.equal(k_out, again))}")
+    check(rel <= KERNEL_RSEG, "gathered_segment_sum vs plain")
+    check(torch.equal(k_out, again), "gathered_segment_sum is deterministic")
+    check(torch.equal(stage, k_out), "pack_gradient is the kernel's sums")
+    # what the sum kernel costs when the rows already lie Gaussian-major
+    sorted_ms = cuda_ms(lambda: segsum.sorted_segment_sum(
+        ordered, bins.pair_gid, n, bins.offsets), reps=50)
+    del stage, ordered, scale
+
+    ms = cuda_ms(lambda: segsum.gathered_segment_sum(*k_args), reps=50)
+    with torch.profiler.profile(activities=PROFILER_ACTIVITIES) as prof:
+        for _ in range(20):
+            segsum.gathered_segment_sum(*k_args)
+        torch.cuda.synchronize()
+    split = {re.search(r"segsum_\w+", key).group(): t
+             for key, t in device_kernels(prof, 20) if "segsum_" in key}
+    stage_ms = cuda_ms(lambda: rasterize_mod.pack_gradient(rows, bins, n),
+                       reps=50)
+    unfolded_ms = cuda_ms(lambda: segsum.sorted_segment_sum(
+        gaussian_major(rows, bins.order), bins.pair_gid, n, bins.offsets), reps=50)
+    plain_ms = cuda_ms(lambda: segsum.sorted_segment_sum_plain(
+        gaussian_major(rows, bins.order), bins.pair_gid, n), reps=20)
     lib_ms = cuda_ms(lambda: torch.zeros((n, 9), device=rows.device)
-                     .index_add_(0, gid, rows), reps=50)
-    m = rows.shape[0]
-    nbytes = 36 * m + 4 * (n + 1) + 36 * n   # rows, offsets; sums written
-    ops = 9 * m                       # one add per input value
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    log(f"segment sum: {m} rows into {n} Gaussians, bytes {nbytes} "
-        f"({t_bytes:.4f} ms), fp32 ops {ops} ({t_ops:.4f} ms); kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms")
-    return {"max_abs_err": err, "segment_rel_err": rel, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes > t_ops else "operations",
-            "library_ms": lib_ms, "bytes": nbytes, "ops": ops, "rows": m,
-            "n": n}
+                     .index_add_(0, bins.gids, rows), reps=50)
+    m = int(bins.offsets[n] - bins.offsets[0])   # the rows the sums read
+    # each pair row and its permutation entry (int64) read once, the offsets
+    # once, the sums written once; one add per input value
+    b = bound(36 * m + 8 * bins.n_pairs + 4 * (n + 1) + 36 * n, 9 * m)
+    with_inv = bound(36 * m + 4 * m + 4 * (n + 1) + 36 * n, 9 * m)
+    old = bound(36 * m + 4 * (n + 1) + 36 * n, 9 * m)
+    log(f"segment sum: {launches} launches on the training path; {m} pair "
+        f"rows into {n} Gaussians, bytes {b['bytes']} "
+        f"({b['bytes_ms']:.4f} ms; with an int32 inverse index given "
+        f"{with_inv['bytes_ms']:.4f} ms; the gid-sorted kernel's "
+        f"{old['bytes_ms']:.4f} ms), fp32 ops {b['ops']} ({b['ops_ms']:.4f} "
+        f"ms); gathered rows touch {64 * m} bytes of 32-B sectors; kernel "
+        f"{ms:.4f} ms ({b['bound_ms'] / ms:.1%} of its bound; by the "
+        f"profiler {split}), stage {stage_ms:.4f} ms, unfolded stage "
+        f"{unfolded_ms:.4f} ms, the gid-sorted entry on Gaussian-major rows "
+        f"{sorted_ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ "
+        f"{lib_ms:.4f} ms")
+    return dict(b, max_abs_err=err, segment_rel_err=rel, ms=ms,
+                kernel_split_ms=split, stage_ms=stage_ms,
+                unfolded_stage_ms=unfolded_ms, gid_sorted_ms=sorted_ms,
+                plain_ms=plain_ms,
+                library_ms=lib_ms, inverse_given_bound_ms=with_inv["bound_ms"],
+                gid_sorted_bound_ms=old["bound_ms"], rows=m, n=n)
 
 
 # --------------------------------------------------------------------------
@@ -1111,14 +1221,13 @@ def eval_times(mdir: Path, weights: str, dev) -> dict:
         "ssim": lambda: ssim(rc.permute(2, 0, 1), g.permute(2, 0, 1)),
         "lpips": lambda: lpips_fn(rc, g),
     }
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     out = {}
     with torch.no_grad():
         same = float(lpips_fn(rc, rc))
         for name, fn in stages.items():
             ms = cuda_ms(fn, reps=5)
-            with torch.profiler.profile(activities=acts) as prof:
+            with torch.profiler.profile(
+                    activities=PROFILER_ACTIVITIES) as prof:
                 for _ in range(3):
                     fn()
                 torch.cuda.synchronize()
@@ -1206,18 +1315,22 @@ def full_eval_path(root: Path, seed: int, dev) -> dict:
             "means": {Path(k).parts[-3]: v["mean"] for k, v in res.items()}}
 
 
-def full_eval_spread(runs: int, seed: int, deterministic: bool, dev) -> dict:
-    """Phase 14 ``runs`` times on the scene of ``seed``, with
-    ``torch.backends.cudnn.deterministic`` set as asked: each scene's PSNR
-    and SSIM in every run."""
-    torch.backends.cudnn.deterministic = deterministic
+def full_eval_spread(runs: int, seed: int, dev) -> dict:
+    """Phase 14 ``runs`` times on the scene of ``seed``: each scene's PSNR
+    and SSIM in every run. Fails unless every run of a scene gives the same
+    bits."""
     SCRATCH.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=SCRATCH) as tmp:
         means = [full_eval_path(Path(tmp) / f"run{i}", seed, dev)["means"]
                  for i in range(runs)]
-    return {"full_eval_runs": runs, "cudnn_deterministic": deterministic,
-            **{k: {s: [m[s][k] for m in means] for s in means[0]}
-               for k in ("PSNR", "SSIM")}}
+    out = {k: {s: [m[s][k] for m in means] for s in means[0]}
+           for k in ("PSNR", "SSIM")}
+    for k, by_scene in out.items():
+        for scene, values in by_scene.items():
+            check(len(set(values)) == 1,
+                  f"every full_eval run gives the same {k} on {scene}: "
+                  f"{values}")
+    return {"full_eval_runs": runs, **out}
 
 
 # --------------------------------------------------------------------------
@@ -1245,7 +1358,10 @@ def gather_path() -> dict:
 
 def gather_checks(runs: dict, dev) -> dict:
     """Each form bit for bit against the plain version on the tool's
-    inputs at each N, and the bound from the bytes the tool counted."""
+    inputs at each N, the bound from the bytes the tool counted, and the
+    plane form's sector floor: one 32-B sector per (id, plane), timed at
+    the HBM rate, which binds only where every sector comes from HBM
+    (repeats and a pack that fits the 50 MB L2 come from L2)."""
     by_n = {}
     for n, r in runs.items():
         pack, ids = exp_r2.make_inputs(n, r["na"], r["nt"], r["k"], 0, dev)
@@ -1259,13 +1375,24 @@ def gather_checks(runs: dict, dev) -> dict:
             check(torch.equal(out, plain),
                   f"{name} at N={n} equals the plain version bit for bit")
             errs[name] = float((out - plain).abs().max())
-        bound = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        by_n[n] = {"bytes": r["bytes"], "bound_ms": bound,
-                   "plain_ms": r["plain_ms"], "max_abs_err": errs,
-                   "ms": {f: v["ms"] for f, v in r["forms"].items()}}
-        log(f"gather N={n}: forms (ms) {by_n[n]['ms']}, plain = index_select "
-            f"{r['plain_ms']:.4f} ms, bytes {r['bytes']} (bound "
-            f"{bound:.4f} ms), bit-equal to plain")
+        bound_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        sector_ms = r["plane_sector_bytes"] / HBM_BYTES_PER_S * 1e3
+        ms = {f: v["ms"] for f, v in r["forms"].items()}
+        by_n[n] = {"bytes": r["bytes"], "bound_ms": bound_ms,
+                   "plane_sector_bytes": r["plane_sector_bytes"],
+                   "plane_sector_floor_ms": sector_ms,
+                   "pack_bytes": 4 * n * r["na"],
+                   "plain_ms": r["plain_ms"], "max_abs_err": errs, "ms": ms,
+                   "share_of_bound": {f: bound_ms / t for f, t in ms.items()}}
+        log(f"gather N={n} (pack {4 * n * r['na']} bytes): forms (ms) {ms}, "
+            f"share of the bound "
+            + ", ".join(f"{f} {v:.1%}" for f, v in
+                        by_n[n]["share_of_bound"].items())
+            + f"; plain = index_select {r['plain_ms']:.4f} ms, bytes "
+            f"{r['bytes']} (bound {bound_ms:.4f} ms); plane sectors "
+            f"{r['plane_sector_bytes']} bytes ({sector_ms:.4f} ms if all came "
+            f"from HBM: {bound_ms / sector_ms:.1%} of the bound); "
+            f"bit-equal to plain")
     first = by_n[GATHER_N[0]]
     # the headline is the row form, the layout the composite kernels use,
     # at the tool's default shapes; the plain version is the library call
@@ -1283,10 +1410,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--full-eval-runs", type=int, default=0,
-                    help="run only phase 14, this many times")
-    ap.add_argument("--cudnn-deterministic", action="store_true",
-                    help="with --full-eval-runs: cuDNN's deterministic "
-                    "algorithms only")
+                    help="run only phase 14, this many times, and check "
+                    "that every run gives the same bits")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this script runs only on one",
@@ -1297,7 +1422,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     if args.full_eval_runs:
         print(json.dumps(full_eval_spread(args.full_eval_runs, args.seed + 1,
-                                          args.cudnn_deterministic, dev)))
+                                          dev)))
         return 0
 
     SCRATCH.mkdir(exist_ok=True)
@@ -1345,7 +1470,7 @@ def main(argv=None) -> int:
         measured["composite_bwd"] = composite_bwd_checks(
             inputs["composite_bwd"])
         measured["sorted_segment_sum"] = segsum_checks(
-            inputs["sorted_segment_sum"])
+            inputs["pack_gradient"], train["launches"]["sorted_segment_sum"])
         del inputs, state
         for name, r in real_block_checks(args.seed, dev).items():
             measured[name]["real_block"] = r

@@ -4,7 +4,11 @@
 there is none: there is no silent fallback to the CPU. ``"cpu"`` is
 honoured only when the caller passes it explicitly (the CPU tests do).
 On the CUDA path TF32 is switched off for matmuls and cuDNN, so fp32 math
-stays fp32 as in the JAX reference.
+stays fp32 as in the JAX reference, and cuDNN is held to its deterministic
+algorithms with autotuning off (``cudnn.deterministic``, no
+``cudnn.benchmark``): the appearance net's convolution gradients then sum in
+a fixed order, so training gives the same bits on every run, as the
+reference's backward (no atomics) does. There is no switch for either.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
                 "on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
         return dev
     if dev.type == "cpu":
         return dev

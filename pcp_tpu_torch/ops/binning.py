@@ -19,10 +19,12 @@ render the same image when a tile overflows. No pair is ever dropped, so
 ``n_dropped`` is 0.
 
 The bins keep the sort's permutation, the Gaussian-major pair gids and each
-Gaussian's range of them, so the backward turns per-pair gradient rows
-(tile-major) into gid-sorted rows with one permutation scatter
-(``gaussian_major``) and no second sort: the role of the JAX package's
-``pos_from_counts`` shortcut (rasterize.py:218-228).
+Gaussian's range of them, so the backward reduces per-pair gradient rows
+(tile-major) per Gaussian with no second sort: the role of the JAX
+package's ``pos_from_counts`` shortcut (rasterize.py:218-228). On the card
+the segment sum reads the rows through the inverse of the sort's
+permutation; the plain path first scatters the rows into Gaussian-major
+order (``gaussian_major``).
 """
 
 from __future__ import annotations
@@ -109,11 +111,12 @@ def bin_gaussians(
     )
 
 
-def gaussian_major(rows: torch.Tensor, bins: TileBins) -> torch.Tensor:
+def gaussian_major(rows: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     """Per-pair rows in pair-list (tile-major) order -> the same rows in
-    Gaussian-major order, whose gids are ``bins.pair_gid`` (nondecreasing)."""
+    Gaussian-major order, by the sort's permutation ``order``
+    (``TileBins.order``); their gids are ``TileBins.pair_gid``."""
     out = torch.empty_like(rows)
-    out[bins.order] = rows
+    out[order] = rows
     return out
 
 

@@ -6,9 +6,11 @@ out[t, a, k] = pack[ids[t, k], a]. ``layout`` names how the pack is held
 and read, as the tool's three forms do:
 
 - ``"row"`` (form2_row_take): pack (N, NA), one row load per id;
-- ``"col"`` (form1_col_take): pack (N, NA), one scalar load per attribute;
+- ``"col"`` (form1_col_take): pack (N, NA), the row form's input; the TPU
+  bodies differ, the function does not, so on the card it runs the row
+  kernel;
 - ``"plane"`` (form3_lane_take): pack transposed, (NA, N), one scalar load
-  per attribute plane.
+  per attribute plane, two planes at a time across the whole grid.
 
 For CUDA tensors the wrapper launches the hand-written kernel
 (``csrc/gather_pack.cu``); for CPU tensors it runs the plain version
@@ -53,9 +55,9 @@ def gather_pack(pack, ids, layout: str):
     if pack.dim() != 2 or ids.dim() != 2:
         raise ValueError("pack and ids must be 2-D")
     na, n = pack.shape if layout == "plane" else pack.shape[::-1]
-    if layout == "row" and (na % 4 or pack.data_ptr() % 16):
-        raise ValueError("the row layout reads float4: NA must be a multiple "
-                         "of 4 and the pack 16-byte aligned")
+    if layout != "plane" and (na % 4 or pack.data_ptr() % 16):
+        raise ValueError(f"the {layout} layout reads float4: NA must be a "
+                         "multiple of 4 and the pack 16-byte aligned")
     if pack.device.type == "cpu":
         return gather_pack_plain(pack, ids, layout)
     if pack.device.type != "cuda":

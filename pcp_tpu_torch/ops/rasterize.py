@@ -5,9 +5,10 @@ front-end of gaussian_renderer/__init__.py:18-100).
 ``image = color + T * background`` (forward.cu:365-373), cropped to the
 image; the aux dict carries the JAX package's keys. Gradients reach the
 Gaussians through autograd of preprocess and the ``Blend`` function: its
-backward runs ``composite_bwd`` (per-pair rows), puts the rows in
-Gaussian-major order and reduces them with ``sorted_segment_sum`` -- the
-role of the JAX package's gather VJP (``_gather_rows_segsum``,
+backward runs ``composite_bwd`` (per-pair rows, pair-list order) and sums
+each Gaussian's rows with ``gathered_segment_sum``, which reads them in
+Gaussian-major order through the inverse of the binning's sort -- the role
+of the JAX package's gather VJP (``_gather_rows_segsum``,
 rasterize.py:112-260). No atomics anywhere, so gradients are the same on
 every run.
 
@@ -25,21 +26,22 @@ import torch
 from torch.profiler import record_function
 
 from pcp_tpu_torch.device import DeviceLike, resolve_device
-from pcp_tpu_torch.ops.binning import TileBins, bin_gaussians, gaussian_major
+from pcp_tpu_torch.ops.binning import TileBins, bin_gaussians
 from pcp_tpu_torch.ops.composite import (
     composite_bwd,
     composite_fwd,
     pack_attributes,
 )
 from pcp_tpu_torch.ops.projection import TILE, CameraIntrin, preprocess
-from pcp_tpu_torch.ops.segsum import sorted_segment_sum
+from pcp_tpu_torch.ops.segsum import gathered_segment_sum
 
 
 def pack_gradient(rows: torch.Tensor, bins: TileBins, n: int) -> torch.Tensor:
     """Per-pair gradient rows (pair-list order) -> (n, 9) per-Gaussian
-    gradient of the attribute pack."""
-    return sorted_segment_sum(gaussian_major(rows, bins), bins.pair_gid, n,
-                              bins.offsets)
+    gradient of the attribute pack. The rows are read where they lie,
+    through the inverse of the sort's permutation: no Gaussian-major copy
+    is made."""
+    return gathered_segment_sum(rows, bins.order, bins.offsets, n)
 
 
 class Blend(torch.autograd.Function):

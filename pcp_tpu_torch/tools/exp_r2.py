@@ -7,10 +7,12 @@
 
   gather    - the hand-written gather kernel (``ops/gather.py``,
               ``csrc/gather_pack.cu``) in the tool's three layouts: form1
-              per-attribute column loads, form2 row loads, form3 loads from
-              the transposed (NA, N) pack; each with an ``ok=`` spot check
-              and its time, then the plain version (``index_select`` and a
-              transpose, also the library yardstick).
+              and form2 from the (N, NA) pack (one kernel on the card),
+              form3 from the transposed (NA, N) pack; each with an ``ok=``
+              spot check and its time, then the plain version
+              (``index_select`` and a transpose, also the library
+              yardstick). It prints the bytes a gather must move and the
+              plane form's sector floor: one 32-B sector per (id, plane).
   sort      - ``torch.sort`` of 2M and 4M int32 keys in [0, 2^31), alone and
               with an int32 payload gathered by the sort's permutation.
   xlagather - the row gather + transpose as plain torch, and its VJP (a
@@ -42,7 +44,7 @@ FORMS = (("form1_col_take", "col"), ("form2_row_take", "row"),
 # On the card the timed launches queue behind a spin kernel of this many
 # cycles (~30 ms), so the host's per-call work is hidden and the events
 # time the launches back to back.
-_SPIN_CYCLES = 50_000_000
+SPIN_CYCLES = 50_000_000
 
 
 def timed(fn: Callable[[int], object], dev: torch.device, reps: int,
@@ -59,7 +61,7 @@ def timed(fn: Callable[[int], object], dev: torch.device, reps: int,
     torch.cuda.synchronize(dev)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(_SPIN_CYCLES)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for i in range(reps):
         fn(warmup + i)
@@ -85,6 +87,12 @@ def gather_bytes(ids, na: int) -> int:
     return 4 * ids.numel() + 4 * na * ids.numel() + 4 * na * rows
 
 
+def plane_sector_bytes(ids, na: int) -> int:
+    """Bytes the plane form moves at least: the NA values of an id lie N
+    floats apart, so each (id, plane) costs a whole 32-B sector."""
+    return 32 * na * ids.numel()
+
+
 def exp_gather(n: int = N, na: int = NA, nt: int = NT, k: int = K,
                seed: int = 0, reps: int = 20,
                device: DeviceLike = None) -> Dict:
@@ -93,8 +101,10 @@ def exp_gather(n: int = N, na: int = NA, nt: int = NT, k: int = K,
     packs = [pack + float(v) for v in range(VARY)]
     packs_t = [p.T.contiguous() for p in packs]
     nbytes = gather_bytes(ids, na)
+    sectors = plane_sector_bytes(ids, na)
     print(f"pack ({n}, {na}) f32, ids ({nt}, {k}) int32 on {dev}: "
-          f"{nbytes} bytes to move")
+          f"{nbytes} bytes to move; the plane form's sector floor "
+          f"{sectors} bytes")
     ref = packs[0][ids[3].long()]                          # (K, NA)
     forms = {}
     for name, layout in FORMS:
@@ -109,7 +119,7 @@ def exp_gather(n: int = N, na: int = NA, nt: int = NT, k: int = K,
                   dev, reps)
     print(f"index_select + permute (the plain version): t={plain:.4f} ms")
     return {"n": n, "na": na, "nt": nt, "k": k, "bytes": nbytes,
-            "forms": forms, "plain_ms": plain}
+            "plane_sector_bytes": sectors, "forms": forms, "plain_ms": plain}
 
 
 def exp_sort(sizes=SORT_SIZES, seed: int = 0, reps: int = 10,

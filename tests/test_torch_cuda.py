@@ -30,7 +30,8 @@ ATOL = 1e-5
 # order) and its FMAs and one reciprocal of 1 - alpha in place of two
 # divisions, to 1e-5 of each plane's largest value; the segment sum against
 # index_add_'s atomics to 1e-6 of the sum of |terms| of each segment (fp32
-# rounding grows with a segment's length).
+# rounding grows with a segment's length). On the CPU index_add_ adds in row
+# order, as the segment sum does: there the two agree bit for bit.
 RSUM = 1e-5
 RSEG = 1e-6
 
@@ -113,8 +114,6 @@ def test_rasterize_on_the_card_matches_the_cpu(card):
         viewmat=np.eye(4, dtype=np.float32), image_size=(w, h),
         background=np.float32([0.1, 0.2, 0.3]), sh_degree=3)
     out = {}
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
     for dev in ("cpu", "cuda", "cuda"):
         intrin = CameraIntrin(*(torch.tensor(v, device=dev) for v in
                                 (120.0, 120.0, w / 2, h / 2)))
@@ -248,14 +247,60 @@ def test_sorted_segment_sum_matches_plain(card, case):
         assert (out[1000:] == 0).all()
 
 
+def _segment_case(case, rng, n):
+    """Nondecreasing gids of the three segment-sum cases."""
+    if case == "random":
+        return np.sort(rng.integers(0, n, 60_000))
+    if case == "skewed":
+        return np.concatenate([np.full(50_000, 9), np.sort(
+            rng.integers(10, n, 10_000))])
+    return np.concatenate([np.sort(rng.integers(0, 1000, 5000)),
+                           np.full(300, n), np.full(30, n + 5)])
+
+
+@pytest.mark.parametrize("case", ["random", "skewed", "pads"])
+def test_gathered_segment_sum_matches_plain(card, case):
+    """The backward's folded form: pair-order rows placed by a seeded
+    permutation. Rows that land past offsets[n] (the pads' gids >= n) are
+    NaN and must never be read."""
+    rng = np.random.default_rng(13)
+    n = 4096
+    gid = torch.tensor(_segment_case(case, rng, n).astype(np.int32))
+    m = gid.shape[0]
+    order = torch.from_numpy(rng.permutation(m))
+    rows = torch.from_numpy(rng.normal(size=(m, 9)).astype(np.float32))
+    offsets = segsum.segment_offsets(gid, n)
+    rows[order >= int(offsets[n])] = float("nan")
+    ordered = torch.empty_like(rows)
+    ordered[order] = rows
+    args = (rows.to(card), order.to(card), offsets.to(card), n)
+    before = composite.LAUNCHES["sorted_segment_sum"]
+    out = segsum.gathered_segment_sum(*args)
+    assert composite.LAUNCHES["sorted_segment_sum"] == before + 1
+    again = segsum.gathered_segment_sum(*args)
+    keep = gid < n
+    plain = segsum.sorted_segment_sum_plain(ordered[keep].to(card),
+                                            gid[keep].to(card), n)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, again)
+    assert float(_seg_rel(out, plain, ordered[keep].to(card),
+                          gid[keep].to(card), n)) <= RSEG
+    # summed in Gaussian-major order, as the CPU's sequential index_add_
+    assert torch.equal(out.cpu(), segsum.sorted_segment_sum(
+        ordered[keep].contiguous(), gid[keep].contiguous(), n))
+    if case == "pads":
+        assert (out[1000:] == 0).all()
+
+
 def test_train_step_on_the_card_matches_the_cpu(card):
     """One step of a seeded 3000-Gaussian state at 160x96 with appearance on
     both devices: the loss to 1e-4 and each group's gradient (Adam's first
     moment) to 1e-3 of its largest value. CPU and CUDA libm round exp in the
     last bits, which can flip a sample at alpha = 1/255 or a pixel at the
     T = 1e-4 stop. On the card the step runs twice from the same state and,
-    with cuDNN held to deterministic algorithms (the port's own kernels
-    use no atomics), gives the same bits."""
+    with cuDNN held to deterministic algorithms (``resolve_device`` sets
+    it; the port's own kernels use no atomics), gives the same bits."""
     from pcp_tpu_torch.models.appearance import init_appearance
     from pcp_tpu_torch.train import optim
     from pcp_tpu_torch.train.config import OptimConfig
@@ -277,8 +322,6 @@ def test_train_step_on_the_card_matches_the_cpu(card):
     }
     gt = rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
     out = {}
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
     for dev in ("cpu", "cuda", "cuda"):
         p, alive = params_from_numpy(params, np.ones(n, bool), dev)
         app = init_appearance(torch.Generator().manual_seed(1), dev,
@@ -294,6 +337,8 @@ def test_train_step_on_the_card_matches_the_cpu(card):
             2.0, ocfg=OptimConfig(), image_size=(w, h), sh_degree=3,
             use_appearance=True)
         if dev == "cuda":
+            assert torch.backends.cudnn.deterministic
+            assert not torch.backends.cudnn.benchmark
             assert dict(composite.LAUNCHES) == {
                 "composite_fwd": 1, "composite_bwd": 1,
                 "sorted_segment_sum": 1}
@@ -304,7 +349,6 @@ def test_train_step_on_the_card_matches_the_cpu(card):
             assert all(torch.equal(moments[k], out[dev][1][k])
                        for k in moments)
         out[dev] = (float(m["loss"]), moments)
-    torch.backends.cudnn.deterministic = deterministic
     (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["cuda"]
     assert abs(l_gpu - l_cpu) <= 1e-4 * l_cpu
     for k in g_cpu:
@@ -340,6 +384,100 @@ def test_gather_pack_matches_plain(card, layout):
     assert torch.isnan(out[0, :, :2]).all()
     assert torch.equal(out[0, :, 2:], plain[0, :, 2:])
     assert torch.equal(out[1:], plain[1:])
+
+
+@pytest.mark.parametrize("layout", ["row", "col", "plane"])
+@pytest.mark.parametrize("na", [12, 20])
+def test_gather_pack_other_widths(card, layout, na):
+    """NA below and above the plane kernel's batch of 16 loads; bit for
+    bit, NaN for ids outside [0, N)."""
+    from pcp_tpu_torch.ops.gather import gather_pack, gather_pack_plain
+
+    rng = np.random.default_rng(14)
+    n, nt, k = 3000, 9, 130
+    pack = torch.tensor(rng.standard_normal((n, na)).astype(np.float32),
+                        device=card)
+    src = pack.T.contiguous() if layout == "plane" else pack
+    ids = torch.tensor(rng.integers(0, n, (nt, k)).astype(np.int32),
+                       device=card)
+    ids[2, 5] = n + 7
+    out = gather_pack(src, ids, layout)
+    plain = gather_pack_plain(src, ids.clamp_max(n - 1), layout)
+    torch.cuda.synchronize()
+    assert torch.isnan(out[2, :, 5]).all()
+    out[2, :, 5] = plain[2, :, 5]
+    assert torch.equal(out, plain)
+
+
+def _tiny_colmap_scene(root, seed):
+    """A COLMAP model of 300 points seen by 4 cameras at 96x64, noise GT."""
+    from PIL import Image
+
+    from pcp_tpu_torch.io import colmap
+
+    rng = np.random.default_rng(seed)
+    n, w, h = 300, 96, 64
+    xyz = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n),
+                    rng.uniform(4, 8, n)], -1)
+    (root / "images").mkdir(parents=True)
+    images = {}
+    for i in range(4):
+        name = f"im{i}.png"
+        Image.fromarray(rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
+                        ).save(root / "images" / name)
+        images[i + 1] = colmap.Image(i + 1, np.array([1.0, 0.0, 0.0, 0.0]),
+                                     rng.uniform(-0.2, 0.2, 3), 1, name)
+    colmap.write_model(
+        {1: colmap.Camera(1, "PINHOLE", w, h,
+                          np.array([80.0, 80.0, w / 2, h / 2]))},
+        images, colmap.Points3D.from_arrays(
+            xyz, rng.integers(0, 256, (n, 3)).astype(np.uint8)),
+        str(root / "sparse" / "0"), ext=".bin")
+
+
+def test_cli_train_repeats_bit_for_bit(card, tmp_path, monkeypatch):
+    """Two ``cli.train`` runs of a tiny scene, with a densify and an opacity
+    reset, give the same PLY bytes and the same logged losses. They run
+    under ``torch.use_deterministic_algorithms``, so an operation on the
+    path with no deterministic implementation raises."""
+    import functools
+    import json
+
+    from pcp_tpu_torch.cli import train
+    from pcp_tpu_torch.train import loop
+
+    monkeypatch.setattr(loop, "TrainLogger", functools.partial(
+        loop.TrainLogger, use_tensorboard=False))
+    # cuBLAS is deterministic only with a fixed workspace
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    scene = tmp_path / "scene"
+    _tiny_colmap_scene(scene, 15)
+    runs = []
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for i in range(2):
+            out = tmp_path / f"out{i}"
+            composite.LAUNCHES.clear()
+            train.main(["-s", str(scene), "-m", str(out), "--iterations",
+                        "24", "--save_iterations", "24", "--capacity",
+                        "1024", "--densify_from_iter", "5",
+                        "--densification_interval", "10",
+                        "--opacity_reset_interval", "15", "--log_interval",
+                        "1", "--quiet"])
+            assert composite.LAUNCHES["sorted_segment_sum"] == 24
+            logs = [json.loads(line) for line in
+                    (out / "train_log.jsonl").read_text().splitlines()]
+            losses = [r["train_loss_patches/total_loss"] for r in logs
+                      if "train_loss_patches/total_loss" in r]
+            ply = (out / "point_cloud" / "iteration_24" /
+                   "point_cloud.ply").read_bytes()
+            runs.append((losses, ply))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert len(runs[0][0]) == 24
+    assert runs[0][0] == runs[1][0]
+    assert runs[0][1] == runs[1][1]
 
 
 def test_evaluate_images_on_the_card_matches_the_cpu(card, tmp_path):

@@ -4,8 +4,12 @@
 against ``segsum_pallas.sorted_segment_sum(..., mode="f32",
 interpret=True)``, the TPU kernel with full-precision operands, on random
 segments, a skewed segment spanning many of the kernel's chunks, and pad
-rows with gid >= n. Tolerance 1e-5: both sum the same fp32 values, in other
-orders.
+rows with gid >= n. The backward's folded form, ``gathered_segment_sum``,
+takes the rows in pair-list order with the binning's sort permutation and
+is held to the same kernel on the rows put in Gaussian-major order, on the
+real bins of a small scene and on a skewed segment under a seeded
+permutation. Tolerance
+1e-5: both sum the same fp32 values, in other orders.
 """
 
 import jax.numpy as jnp
@@ -14,8 +18,14 @@ import pytest
 import torch
 
 from pcp_tpu.ops.segsum_pallas import sorted_segment_sum as j_segsum
-from pcp_tpu_torch.ops.binning import bin_gaussians
-from pcp_tpu_torch.ops.segsum import segment_offsets, sorted_segment_sum
+from pcp_tpu_torch.ops.binning import bin_gaussians, gaussian_major
+from pcp_tpu_torch.ops.projection import CameraIntrin, preprocess
+from pcp_tpu_torch.ops.segsum import (
+    gathered_segment_sum,
+    segment_offsets,
+    sorted_segment_sum,
+    sorted_segment_sum_plain,
+)
 
 TOL = 1e-5
 
@@ -112,3 +122,99 @@ def test_bins_keep_the_offsets_of_their_pair_gids():
     assert torch.equal(bins.offsets, segment_offsets(bins.pair_gid, n))
     counts = (rect[:, 2] - rect[:, 0]) * (rect[:, 3] - rect[:, 1])
     assert bins.offsets.diff().tolist() == counts.tolist()
+
+
+def _scene_bins(seed=6, n=384, w=96, h=64):
+    """The real ``bin_gaussians`` output of a small seeded scene, through
+    the port's preprocess."""
+    rng = np.random.default_rng(seed)
+    xyz = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n),
+                    rng.uniform(3, 9, n)], -1)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32))  # noqa: E731
+    prep = preprocess(
+        t(xyz), t(rng.uniform(0.05, 0.4, (n, 3))), t(rng.normal(size=(n, 4))),
+        t(rng.uniform(0.1, 0.9, n)), t(rng.normal(0, 0.3, (n, 16, 3))),
+        torch.eye(4), CameraIntrin(*(torch.tensor(v) for v in
+                                     (80.0, 80.0, w / 2, h / 2))),
+        (w, h), 3)
+    return bin_gaussians(prep["rect"], prep["depths"], (w + 15) // 16,
+                         (h + 15) // 16, 256), n
+
+
+def _gathered_case(case):
+    """(pair-order rows, order, offsets, n, Gaussian-major rows, gids)."""
+    if case == "bins":
+        bins, n = _scene_bins()
+        rng = np.random.default_rng(8)
+        rows = torch.from_numpy(
+            rng.normal(size=(bins.n_pairs, 9)).astype(np.float32))
+        return (rows, bins.order, bins.offsets, n,
+                gaussian_major(rows, bins.order), bins.pair_gid)
+    # one Gaussian owns most rows, and the pair order is a seeded shuffle:
+    # pair row i belongs at Gaussian-major position order[i]
+    rng = np.random.default_rng(9)
+    n = 256
+    gid = np.concatenate([np.full(2000, 5), np.sort(
+        rng.integers(6, n, 500))]).astype(np.int32)
+    order = rng.permutation(gid.shape[0])
+    pair_rows = rng.normal(size=(gid.shape[0], 9)).astype(np.float32)
+    ordered = np.empty_like(pair_rows)
+    ordered[order] = pair_rows
+    gid_t = torch.from_numpy(gid)
+    return (torch.from_numpy(pair_rows), torch.from_numpy(order),
+            segment_offsets(gid_t, n), n, torch.from_numpy(ordered), gid_t)
+
+
+@pytest.mark.parametrize("case", ["bins", "skewed"])
+def test_gathered_matches_pallas(case):
+    rows, order, offsets, n, ordered, gid = _gathered_case(case)
+    assert rows.shape[0] > 1000 and (offsets.diff() > 0).sum() > 100
+    t = gathered_segment_sum(rows, order, offsets, n).numpy()
+    j = np.asarray(j_segsum(jnp.asarray(ordered.numpy().T),
+                            jnp.asarray(gid.numpy()), n, gb=128, chunk=256,
+                            mode="f32", interpret=True)).T
+    assert t.shape == (n, 9)
+    assert _rel(t, j) < TOL
+
+
+@pytest.mark.parametrize("case", ["bins", "skewed"])
+def test_gathered_is_the_unfolded_stage(case):
+    # the plain twin of the folded form: the Gaussian-major copy, then the
+    # sequential sum; the same bits
+    rows, order, offsets, n, ordered, gid = _gathered_case(case)
+    assert torch.equal(rows, ordered[order])
+    assert torch.equal(gathered_segment_sum(rows, order, offsets, n),
+                       sorted_segment_sum_plain(ordered, gid, n))
+
+
+def test_gathered_never_reads_positions_past_the_last_segment():
+    rng = np.random.default_rng(10)
+    gid = torch.tensor(np.sort(rng.integers(0, 50, 400)).astype(np.int32))
+    offsets = segment_offsets(gid, 50)
+    order = torch.from_numpy(rng.permutation(500))
+    rows = torch.from_numpy(rng.normal(size=(500, 9)).astype(np.float32))
+    rows[order >= 400] = float("nan")        # positions >= offsets[n]
+    out = gathered_segment_sum(rows, order, offsets, 50)
+    assert torch.isfinite(out).all()
+    ordered = torch.empty_like(rows)
+    ordered[order] = rows
+    assert torch.equal(out, sorted_segment_sum_plain(ordered[:400], gid, 50))
+
+
+def test_gathered_wrapper_checks_its_inputs():
+    rows = torch.zeros((5, 9))
+    order = torch.arange(5)
+    offsets = torch.tensor([0, 2, 5], dtype=torch.int32)
+    assert gathered_segment_sum(rows, order, offsets, 2).shape == (2, 9)
+    with pytest.raises(TypeError):
+        gathered_segment_sum(rows, order.int(), offsets, 2)
+    with pytest.raises(TypeError):
+        gathered_segment_sum(rows.double(), order, offsets, 2)
+    with pytest.raises(ValueError):
+        gathered_segment_sum(torch.zeros((5, 8)), order, offsets, 2)
+    with pytest.raises(ValueError):
+        gathered_segment_sum(rows, order[:4], offsets, 2)
+    with pytest.raises(ValueError):
+        gathered_segment_sum(rows, order, offsets, 3)
+    with pytest.raises(TypeError):
+        gathered_segment_sum(rows, order, offsets.long(), 2)

@@ -136,6 +136,14 @@ class _Pair:
 
     def step(self, i):
         """Camera ``i`` through both steps; returns (jax loss, port loss)."""
+        j_m, t_m = self.both_steps(i)
+        assert t_m["n_pairs"] == int(j_m["n_pairs"])
+        assert t_m["n_dropped"] == 0 and int(j_m["n_dropped"]) == 0
+        assert int(t_m["n_visible"]) == int(j_m["n_visible"])
+        return float(j_m["loss"]), float(t_m["loss"])
+
+    def both_steps(self, i):
+        """Camera ``i`` through both steps; returns both metrics dicts."""
         j_cam, t_cam = self.j_cams[i], self.t_cams[i]
         viewmat, intrin = jcam.camera_device_arrays(j_cam)
         self.j_state, j_m = self.j_step(
@@ -147,10 +155,7 @@ class _Pair:
             t_cam.uid, torch.from_numpy(self.bg), self.t_scene.extent,
             ocfg=self.t_ocfg, image_size=self.size, sh_degree=SH,
             use_appearance=True)
-        assert t_m["n_pairs"] == int(j_m["n_pairs"])
-        assert t_m["n_dropped"] == 0 and int(j_m["n_dropped"]) == 0
-        assert int(t_m["n_visible"]) == int(j_m["n_visible"])
-        return float(j_m["loss"]), float(t_m["loss"])
+        return j_m, t_m
 
 
 @pytest.fixture(scope="module")
