@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's render, training, eval and gather-experiment
-paths on one CUDA card and hold every kernel on them against its plain
-PyTorch version.
+"""Drive the PyTorch/CUDA port's render, training, eval, pipeline and
+gather-experiment paths on one CUDA card and hold every kernel on them
+against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -48,15 +48,25 @@ there, needs no install step and nothing from the network. Phases:
 14. ``pcp_tpu_torch.cli.full_eval.main`` on ``cuda``: a small scene, linked
     as Tanks&Temples' ``truck`` and ``train``, through train -> render ->
     metrics for ``FULL_EVAL_ITERS`` iterations;
-15. the gather experiment (``pcp_tpu_torch.tools.exp_r2 gather``) at its
+15. the pipeline: an aerial COLMAP scene from ``--seed`` (``PIPE_POINTS``
+    points over a few hundred metres of terrain, ``PIPE_CAMS`` cameras at
+    1280x800 looking down, GT rendered on the card), then
+    ``cli.partition`` (outlier removal on, threshold 500000),
+    ``cli.auto_train --sequential`` (every block at full width for
+    ``PIPE_ITERS`` steps with a densify and a checkpoint), two
+    ``cli.train --start_checkpoint`` resumes of one block (the same bits),
+    ``cli.merge``, ``cli.render`` of the held-out views and
+    ``cli.metrics``; with the native libraries loaded and the card's
+    outlier screen held to the native filter;
+16. the gather experiment (``pcp_tpu_torch.tools.exp_r2 gather``) at its
     default shapes and at N = 2^20, each of its three forms held bit for
     bit to the plain version, with the byte bound and the plane form's
     sector floor; ``sort`` and ``xlagather`` once;
-16. one ``{"kernels": [...]}`` line, the card's name and power limit, and
+17. one ``{"kernels": [...]}`` line, the card's name and power limit, and
     the ``{"ok": true, ...}`` line last.
 
-Paths 4, 8, 12, 14 and 15 each run with every launch count set to 0 just
-before and read just after.
+Paths 4, 8, 12, 14, 15 and 16 each run with every launch count set to 0
+just before and read just after.
 
 Any failed check raises: the script then exits non-zero and prints no
 result line. Without a CUDA card it exits 1 before doing anything.
@@ -143,6 +153,15 @@ STEP_REPS = 5                      # timed warm steps at full width
 # 83) trained for a few steps, in seconds
 FULL_EVAL_GAUSSIANS, FULL_EVAL_ITERS = 20_000, 10
 GATHER_N = (exp_r2.N, 1 << 20)     # the JAX tool's pack; the port's slots
+# The pipeline: an aerial capture of PIPE_POINTS points over a PIPE_SIDE m
+# square (PIPE_SIDE / 0.25 m cells across and ~35 m of height keep the
+# outlier screen's grid under its 2^28-cell cap), partitioned at the 24 GB
+# tier's threshold (README.md) into blocks of ~500k points, each trained
+# PIPE_ITERS steps with a densify at 10 and 20 and a checkpoint at PIPE_CKPT
+PIPE_POINTS, PIPE_AIR, PIPE_SIDE = 2_000_000, 20_000, 300.0
+PIPE_CAMS, PIPE_HEIGHT, PIPE_FX = 32, 120.0, 1000.0
+PIPE_THRESHOLD = 500_000
+PIPE_ITERS, PIPE_CKPT = 20, 10
 
 # Every kernel of the paths. ``replaces`` is the TPU kernel's pallas_call.
 KERNELS = [
@@ -1334,7 +1353,268 @@ def full_eval_spread(runs: int, seed: int, dev) -> dict:
 
 
 # --------------------------------------------------------------------------
-# 15. the gather experiment
+# 15. the pipeline
+# --------------------------------------------------------------------------
+
+
+def write_aerial_scene(root: Path, seed: int, dev) -> Path:
+    """A COLMAP model of an aerial capture under ``root``: PIPE_POINTS
+    points over a PIPE_SIDE-metre square of terrain with a few metres of
+    relief (plus PIPE_AIR sparse points in the air for the outlier filter),
+    PIPE_CAMS cameras at 1280x800 looking straight down from PIPE_HEIGHT
+    metres on an 8 x 4 raster, and GT PNGs rendered on ``dev`` from a
+    Gaussian set at the same points (SH degree 0, ~0.15 m splats, opacity
+    0.7, a smooth colour field), so training has a real target."""
+    from PIL import Image as PILImage
+
+    rng = np.random.default_rng(seed)
+    half = PIPE_SIDE / 2
+    n = PIPE_POINTS - PIPE_AIR
+
+    def relief(x, y):
+        return 6.0 * np.sin(x / 40.0) + 5.0 * np.cos(y / 33.0)
+
+    x, y = rng.uniform(-half, half, (2, n))
+    z = relief(x, y) + rng.normal(0.0, 0.1, n)
+    ax, ay = rng.uniform(-half, half, (2, PIPE_AIR))
+    az = relief(ax, ay) + rng.uniform(3.0, 12.0, PIPE_AIR)
+    xyz = np.stack([np.r_[x, ax], np.r_[y, ay], np.r_[z, az]], -1)
+    rgb = np.clip(np.stack([
+        0.5 + 0.35 * np.sin(xyz[:, 0] / 13.0) * np.cos(xyz[:, 1] / 17.0),
+        0.5 + 0.35 * np.cos(xyz[:, 0] / 23.0 + 1.0),
+        0.5 + 0.35 * np.sin(xyz[:, 1] / 11.0 + 2.0)], -1)
+        + rng.normal(0.0, 0.05, xyz.shape), 0.0, 1.0)
+
+    scene = root / "scene"
+    (scene / "images").mkdir(parents=True)
+    cams = {1: colmap.Camera(1, "PINHOLE", W, H,
+                             np.array([PIPE_FX, PIPE_FX, W / 2, H / 2]))}
+    images = {}
+    down = np.diag([1.0, -1.0, -1.0])        # camera +z is world -z
+    for i in range(PIPE_CAMS):
+        c = np.array([-half + PIPE_SIDE * (i % 8 + 0.5) / 8,
+                      -half + PIPE_SIDE * (i // 8 + 0.5) / 4, PIPE_HEIGHT])
+        yaw = rng.uniform(-0.05, 0.05)
+        R = np.array([[math.cos(yaw), -math.sin(yaw), 0],
+                      [math.sin(yaw), math.cos(yaw), 0], [0, 0, 1]]) @ down
+        images[i + 1] = colmap.Image(i + 1, rotmat_to_qvec(R), -R @ c, 1,
+                                     f"im{i:03d}.png")
+    colmap.write_model(cams, images, colmap.Points3D.from_arrays(
+        xyz, (rgb * 255).astype(np.uint8)), str(scene / "sparse" / "0"),
+        ext=".bin")
+
+    logit = math.log(0.7 / 0.3)
+    params, alive = G.params_from_numpy({
+        "xyz": xyz.astype(np.float32),
+        "f_dc": rgb_to_sh(rgb).astype(np.float32),
+        "f_rest": np.zeros((len(xyz), 0, 3), np.float32),
+        "opacity": np.full((len(xyz), 1), logit, np.float32),
+        "scaling": np.log(0.15) + rng.uniform(-0.3, 0.3, (len(xyz), 3))
+        .astype(np.float32),
+        "rotation": rng.normal(size=(len(xyz), 4)).astype(np.float32),
+    }, np.ones(len(xyz), bool), dev)
+    bg = torch.zeros(3, device=dev)
+    for info in load_colmap_scene(str(scene)).cameras:
+        img, st = render_view(params, alive,
+                              cam_mod.from_info(info, -1, load_image=False),
+                              0, bg, device=dev)
+        check(st["n_dropped"] == 0, "the GT render drops no pair")
+        PILImage.fromarray((img * 255).astype(np.uint8)).save(
+            info.image_path)
+    return scene
+
+
+def pipeline_path(root: Path, seed: int, dev, weights: str,
+                  smi: str) -> dict:
+    """The reference workflow through the port's CLIs on the card, at full
+    width: ``cli.partition`` (outlier removal on, the 24 GB tier's
+    threshold), ``cli.auto_train --sequential`` (every block at 1280x800,
+    SH 3, appearance on, 2^20 slots, PIPE_ITERS steps with a densify and a
+    checkpoint at PIPE_CKPT), two ``cli.train --start_checkpoint`` resumes
+    of one block, ``cli.merge``, ``cli.render`` of the held-out views and
+    ``cli.metrics``, with every launch count set to 0 just before and read
+    just after. Checks the native libraries, the card's outlier screen
+    against the native filter, the blocks, the resumes' bits, the merged
+    model and the scores."""
+    from pcp_tpu_torch.cli import auto_train as auto_train_cli
+    from pcp_tpu_torch.cli import merge as merge_cli
+    from pcp_tpu_torch.cli import partition as partition_cli
+    from pcp_tpu_torch.native import load_library, load_points_library
+    from pcp_tpu_torch.partition.points import (
+        _grid_screen,
+        _radius_outlier_native,
+    )
+    from pcp_tpu_torch.train import loop
+
+    t_phase = t0 = time.perf_counter()
+    scene = write_aerial_scene(root, seed, dev)
+    log(f"pipeline scene: {PIPE_POINTS} points, {PIPE_CAMS} cameras at "
+        f"{W}x{H}, written in {time.perf_counter() - t0:.1f} s")
+    model = scene / "model"
+    visible = model / "split_result" / "visible"
+    train_flags = ["--iterations", str(PIPE_ITERS), "--densify_from_iter",
+                   str(DENSIFY_FROM), "--densification_interval",
+                   str(DENSIFY_EVERY), "--device", "cuda"]
+
+    # per-step wall times (the step synchronised) and per-block seconds
+    steps, blocks_s = [], {}
+    real_step, real_train = loop.train_step_impl, loop.train_scene
+
+    def timed_step(*a, **kw):
+        t = time.perf_counter()
+        out = real_step(*a, **kw)
+        torch.cuda.synchronize()
+        steps[-1].append(time.perf_counter() - t)
+        return out
+
+    def timed_train(scene_info, cfg, **kw):
+        steps.append([])
+        t = time.perf_counter()
+        state = real_train(scene_info, cfg, **kw)
+        torch.cuda.synchronize()
+        blocks_s[kw.get("save_name", "point_cloud")] = \
+            time.perf_counter() - t
+        return state
+
+    composite.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    records = partition_cli.main([str(scene), "--threshold",
+                                  str(PIPE_THRESHOLD), "--no_plots",
+                                  "--llffhold", str(LLFFHOLD), "--device",
+                                  "cuda"])
+    partition_s = time.perf_counter() - t0
+    check(load_library() is not None and load_points_library() is not None,
+          "the native codec and points filter loaded")
+    points = {r.partition_id: r.point_num for r in records}
+    check(len(records) >= 2, f"at least 2 blocks: {points}")
+    check(all(r.camera_uids for r in records), "every block has cameras")
+
+    cloud = load_colmap_scene(str(scene)).points
+    t1 = time.perf_counter()
+    certain_in, certain_out = _grid_screen(cloud, 5, 1.0, dev)
+    torch.cuda.synchronize()
+    screen_s = time.perf_counter() - t1
+    keep = _radius_outlier_native(cloud, 5, 1.0)
+    check(bool(keep[certain_in].all()),
+          "every point the card's screen certainly keeps, the filter keeps")
+    check(not keep[certain_out].any(),
+          "every point the card's screen certainly removes, the filter "
+          "removes")
+    screen = {"points": len(cloud), "kept": int(keep.sum()),
+              "certain_in": int(certain_in.sum()),
+              "certain_out": int(certain_out.sum()), "s": screen_s}
+    log(f"outlier screen on the card: {screen}")
+    del cloud, certain_in, certain_out, keep
+
+    loop.train_step_impl, loop.train_scene = timed_step, timed_train
+    try:
+        t0 = time.perf_counter()
+        auto_train_cli.main(["--base_path", str(visible), "--sequential",
+                             "--checkpoint_iterations", str(PIPE_CKPT),
+                             *train_flags])
+        auto_train_s = time.perf_counter() - t0
+    finally:
+        loop.train_step_impl, loop.train_scene = real_step, real_train
+    manifest = json.loads((visible / "train_status.json").read_text())
+    check(sorted(manifest) == sorted(points)
+          and all(v["status"] == "done" for v in manifest.values()),
+          f"every block trained: {manifest}")
+    warm_ms = {bid: statistics.median(t[1:]) * 1e3
+               for bid, t in zip(sorted(points), steps)}
+    train_s = {bid: blocks_s[f"{bid}_point_cloud"] for bid in sorted(points)}
+
+    # two resumes of the first block from its checkpoint: the same bits
+    bid = sorted(points)[0]
+    block_dir = visible / bid / f"partition_{bid}"
+    resumed, resume_s = [], []
+    for name in ("resume_a", "resume_b"):
+        out = root / name
+        t0 = time.perf_counter()
+        train_cli.main(["-s", str(block_dir), "-m", str(out),
+                        "--start_checkpoint", str(
+                            block_dir / "output" / f"chkpnt{PIPE_CKPT}.pth"),
+                        "--log_interval", "1", "--quiet", *train_flags])
+        torch.cuda.synchronize()
+        resume_s.append(time.perf_counter() - t0)
+        losses = [r["train_loss_patches/total_loss"] for r in map(
+            json.loads, (out / "train_log.jsonl").read_text().splitlines())
+            if "train_loss_patches/total_loss" in r]
+        resumed.append((losses, (out / "point_cloud" / f"iteration_"
+                                 f"{PIPE_ITERS}" / "point_cloud.ply")
+                        .read_bytes()))
+    check(len(resumed[0][0]) == PIPE_ITERS - PIPE_CKPT,
+          "the resume runs the steps after its checkpoint")
+    check(resumed[0] == resumed[1],
+          "two resumes from one checkpoint give the same losses and PLY")
+
+    t0 = time.perf_counter()
+    merged = merge_cli.main(["-m", str(model), "--device", "cuda"])
+    merge_s = time.perf_counter() - t0
+    n_merged = len(merged["xyz"])
+    check(n_merged > 0 and (model / "point_cloud.ply").exists(),
+          "the merged PLY is written")
+    del merged
+
+    # the CLI's wall, and the views' alone (render_split: each view's
+    # render, its copy to the host and its PNGs), without the loads of the
+    # merged PLY and of the scene
+    split_s = []
+    real_split = render_cli.render_split
+
+    def timed_split(*a, **kw):
+        t = time.perf_counter()
+        out = real_split(*a, **kw)
+        split_s.append(time.perf_counter() - t)
+        return out
+
+    render_cli.render_split = timed_split
+    try:
+        t0 = time.perf_counter()
+        stats = render_cli.main(["-s", str(scene), "-m", str(model),
+                                 "--llffhold", str(LLFFHOLD), "--device",
+                                 "cuda"])
+        render_s = time.perf_counter() - t0
+    finally:
+        render_cli.render_split = real_split
+    views = stats["test"]
+    n_views = PIPE_CAMS // LLFFHOLD
+    check(len(views) == n_views and all(v["n_dropped"] == 0 for v in views),
+          f"{n_views} held-out views rendered, none dropping a pair")
+    res = metrics_cli.main(["-m", str(model), "--lpips_weights", weights,
+                            "--device", "cuda"])
+    (mean,) = [r["mean"] for r in res.values()]
+    check(all(math.isfinite(mean[k]) for k in ("PSNR", "SSIM", "LPIPS")),
+          f"finite scores: {mean}")
+    launches = counts()
+    n_steps = len(points) * PIPE_ITERS + 2 * (PIPE_ITERS - PIPE_CKPT)
+    check(launches == {"composite_fwd": n_steps + n_views,
+                       "composite_bwd": n_steps,
+                       "sorted_segment_sum": n_steps, "gather_pack": 0},
+          f"the pipeline launches B1, B2 and B3: {launches}")
+    out = {"launches": launches, "partition_s": partition_s,
+           "blocks": len(points), "points_per_block": points,
+           "auto_train_s": auto_train_s, "train_s": train_s,
+           "warm_step_ms": warm_ms, "merge_s": merge_s,
+           "merged_gaussians": n_merged, "render_s": render_s,
+           "render_ms_per_view": split_s[0] * 1e3 / n_views,
+           "resume_s": resume_s, "phase_s": time.perf_counter() - t_phase,
+           "views": views, "scores": mean, "lpips_synthetic": True,
+           "screen": screen, "card": smi}
+    log(f"pipeline [{smi}]: partition {partition_s:.2f} s; {len(points)} "
+        f"blocks, points {points}")
+    log(f"pipeline [{smi}]: train s {train_s}, median warm step ms "
+        f"{warm_ms} (auto_train {auto_train_s:.1f} s, launches {launches})")
+    log(f"pipeline [{smi}]: resumes {resume_s} s; merge {merge_s:.2f} s -> "
+        f"{n_merged} Gaussians; render {out['render_ms_per_view']:.1f} "
+        f"ms/view with PNG I/O ({n_views} views; the CLI {render_s:.1f} s "
+        f"with its loads); PSNR {mean['PSNR']:.4f} SSIM {mean['SSIM']:.4f} "
+        f"LPIPS {mean['LPIPS']:.4f} (synthetic LPIPS); the phase "
+        f"{out['phase_s']:.1f} s")
+    return out
+
+
+# --------------------------------------------------------------------------
+# 16. the gather experiment
 # --------------------------------------------------------------------------
 
 
@@ -1481,6 +1761,8 @@ def main(argv=None) -> int:
         ev["times"] = eval_times(model / "test" / "ours_merged", weights, dev)
         ev["cpu_vs_cuda"] = eval_cpu_vs_cuda(weights, args.seed)
         fe = full_eval_path(Path(tmp) / "full_eval", args.seed + 1, dev)
+        pipe = pipeline_path(Path(tmp) / "pipeline", args.seed + 2, dev,
+                             weights, smi)
 
         gather = gather_path()
         measured["gather_pack"] = gather_checks(gather["runs"], dev)
@@ -1489,12 +1771,12 @@ def main(argv=None) -> int:
 
     paths = {"render": run["launches"], "train": train["launches"],
              "metrics": ev["launches"], "full_eval": fe["launches"],
-             "exp_r2": gather["launches"]}
+             "pipeline": pipe["launches"], "exp_r2": gather["launches"]}
     main_path_of = {"composite_fwd": "train", "composite_bwd": "train",
                     "sorted_segment_sum": "train", "gather_pack": "exp_r2"}
     print(json.dumps({"render": dict(render, views=run["views"]),
                       "train": dict(train, step=step, small=small),
-                      "eval": ev, "full_eval": fe,
+                      "eval": ev, "full_eval": fe, "pipeline": pipe,
                       "exp_r2": dict(other, gather_by_layout=gather[
                           "by_layout"])}))
     print(json.dumps({"kernels": [

@@ -52,7 +52,13 @@ def add_optim_args(p: argparse.ArgumentParser) -> None:
 def add_pipeline_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--convert_SHs_python", action="store_true")
     p.add_argument("--compute_cov3D_python", action="store_true")
+    p.add_argument("--debug", action="store_true",
+                   help="check the loss every step; on the first non-finite "
+                        "one dump the step's inputs to "
+                        "nan_snapshot_<it>.npz and stop")
     p.add_argument("--no_appearance", action="store_true")
+    p.add_argument("--share_appearance", action="store_true",
+                   help="the fleet's one shared appearance net (ROADMAP A5)")
 
 
 def add_device_arg(p: argparse.ArgumentParser) -> None:
@@ -72,7 +78,9 @@ def config_from_args(args) -> TrainRunConfig:
     pc = PipelineConfig(
         convert_SHs_python=args.convert_SHs_python,
         compute_cov3D_python=args.compute_cov3D_python,
+        debug=args.debug,
         use_appearance=not args.no_appearance,
+        share_appearance=args.share_appearance,
     )
     return TrainRunConfig(model=model_config_from_args(args), optim=oc,
                           pipeline=pc)

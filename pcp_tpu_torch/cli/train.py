@@ -2,10 +2,14 @@
 [--device cpu]``.
 
 Counterpart of ``pcp_tpu/cli/train.py`` (reference train.py:245-274, the
-same core flags): trains one COLMAP scene/block and writes
-<out>/point_cloud/iteration_<N>/point_cloud.ply, cfg_args.json and
-train_log.jsonl. ``main`` returns the final ``TrainState``. Checkpoint
-resume and the viewer flags come with those modules.
+same core flags): trains one COLMAP or Blender scene/block (``load_scene``
+sniffs the type) and writes <out>/point_cloud/iteration_<N>/point_cloud.ply,
+cfg_args.json and train_log.jsonl; ``--checkpoint_iterations`` writes
+<out>/chkpnt<N>.pth, which ``--start_checkpoint`` resumes from (JAX's resume:
+the camera shuffle and the densify draws restart from ``--seed``).
+``--debug`` dumps a non-finite step's inputs and stops; ``--profile`` writes
+a ``torch.profiler`` trace under <out>/trace. ``main`` returns the final
+``TrainState``.
 """
 
 from __future__ import annotations
@@ -32,31 +36,50 @@ def main(argv=None):
                    default=[7_000, 30_000])
     p.add_argument("--save_iterations", nargs="+", type=int,
                    default=[7_000, 30_000])
+    p.add_argument("--checkpoint_iterations", nargs="+", type=int, default=[])
+    p.add_argument("--start_checkpoint", type=str, default=None)
     p.add_argument("--log_interval", type=int, default=100,
                    help="read and log the step's metrics every N iterations")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--profile", action="store_true",
+                   help="write a torch.profiler trace under the model dir")
     args = p.parse_args(argv)
 
+    import torch
+
     from pcp_tpu_torch.device import resolve_device
-    from pcp_tpu_torch.scene import load_colmap_scene
-    from pcp_tpu_torch.train.loop import train_scene
+    from pcp_tpu_torch.scene import load_scene
+    from pcp_tpu_torch.train import checkpoint as ckpt
+    from pcp_tpu_torch.train.loop import init_state, train_scene
 
     device = resolve_device(args.device)
     cfg = config_from_args(args)
     cfg.test_iterations = args.test_iterations
     cfg.save_iterations = args.save_iterations
+    cfg.checkpoint_iterations = args.checkpoint_iterations
+    cfg.start_checkpoint = args.start_checkpoint
     cfg.seed = args.seed
-    scene = load_colmap_scene(cfg.model.source_path,
-                              images_dir=cfg.model.images,
-                              man_trans=man_trans_from_config(cfg.model))
+    scene = load_scene(cfg.model.source_path, images_dir=cfg.model.images,
+                       white_background=cfg.model.white_background,
+                       eval_split=cfg.model.eval,
+                       man_trans=man_trans_from_config(cfg.model))
     log_fn = None if args.quiet else print
     if log_fn:
         log_fn(f"training {cfg.model.source_path} on {device}: "
                f"{len(scene.cameras)} cameras, {len(scene.points)} points, "
                f"extent {scene.extent:.2f}")
-    state = train_scene(scene, cfg, log_fn=log_fn,
-                        log_interval=args.log_interval, device=device)
+    state = None
+    start_iter = 0
+    if cfg.start_checkpoint:
+        template = init_state(scene, cfg,
+                              torch.Generator().manual_seed(cfg.seed), device)
+        state, start_iter = ckpt.load(cfg.start_checkpoint, template)
+        if log_fn:
+            log_fn(f"resumed from {cfg.start_checkpoint} @ iter {start_iter}")
+    state = train_scene(scene, cfg, log_fn=log_fn, state=state,
+                        start_iter=start_iter, log_interval=args.log_interval,
+                        profile=args.profile, device=device)
     if log_fn:
         log_fn(f"training complete: {cfg.model.model_path}")
     return state

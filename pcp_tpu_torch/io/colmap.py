@@ -195,6 +195,22 @@ def read_images_binary(path: str) -> Dict[int, Image]:
     images: Dict[int, Image] = {}
     with open(path, "rb") as f:
         data = f.read()
+    try:
+        from pcp_tpu_torch.io.colmap_fast import read_images_binary_native
+
+        fast = read_images_binary_native(data)
+    except Exception:
+        fast = None
+    if fast is not None:
+        ids, qvec, tvec, cam_ids, names, n2d, xys, p3d = fast
+        offs = np.concatenate([[0], np.cumsum(n2d)]).astype(np.int64)
+        for i in range(len(ids)):
+            s, e = offs[i], offs[i + 1]
+            images[int(ids[i])] = Image(
+                int(ids[i]), qvec[i].copy(), tvec[i].copy(), int(cam_ids[i]),
+                names[i], xys[s:e].copy(), p3d[s:e].copy(),
+            )
+        return images
     (n,) = struct.unpack_from("<Q", data, 0)
     off = 8
     for _ in range(n):
@@ -272,9 +288,21 @@ def write_images_text(images: Dict[int, Image], path: str) -> None:
 # ---------------------------------------------------------------------------
 
 def read_points3D_binary(path: str) -> Points3D:
-    """colmap_loader.py:250-283 semantics, struct-of-arrays + tracks."""
+    """colmap_loader.py:250-283 semantics, struct-of-arrays + tracks.
+
+    Uses the native C++ codec (pcp_tpu_torch.native) when built; pure-Python
+    fallback below is byte-identical."""
     with open(path, "rb") as f:
         data = f.read()
+    try:
+        from pcp_tpu_torch.io.colmap_fast import read_points3d_binary_native
+
+        fast = read_points3d_binary_native(data)
+    except Exception:
+        fast = None
+    if fast is not None:
+        ids, xyz, rgb, err, tlen, t_img, t_idx = fast
+        return Points3D(ids, xyz, rgb, err, tlen, t_img, t_idx)
     (n,) = struct.unpack_from("<Q", data, 0)
     off = 8
     ids = np.empty(n, np.int64)
@@ -306,6 +334,19 @@ def read_points3D_binary(path: str) -> Points3D:
 
 
 def write_points3D_binary(pts: Points3D, path: str) -> None:
+    try:
+        from pcp_tpu_torch.io.colmap_fast import write_points3d_binary_native
+
+        blob = write_points3d_binary_native(
+            pts.ids, pts.xyz, pts.rgb, pts.error, pts.track_lengths,
+            pts.track_image_ids, pts.track_point2D_idxs,
+        )
+    except Exception:
+        blob = None
+    if blob is not None:
+        with open(path, "wb") as f:
+            f.write(blob)
+        return
     offs = pts.track_offsets
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(pts)))

@@ -4,9 +4,11 @@
 A trainable 64-d embedding per view is concatenated onto a 1/32
 downsampled render; conv + 4 x (PixelShuffle 2, conv 3x3, ReLU) + an
 align-corners bilinear resize + two convs + sigmoid give a multiplicative
-map, sigmoid(x) as in the reference (the JAX package's
-PCP_APP_MAP_SCALE widening is not ported). The decoupled image (map *
-render) feeds the L1 loss; SSIM sees the raw render (train.py:111-117).
+map, ``map_scale * sigmoid(x)``: 1 is the reference; the training config's
+``pipeline.app_map_scale`` (the JAX package's ``PCP_APP_MAP_SCALE``,
+appearance.py:44-46, 160-163) widens the map to (0, scale) so per-view gains
+above 1 are expressible. The decoupled image (map * render) feeds the L1
+loss; SSIM sees the raw render (train.py:111-117).
 
 NCHW, as PyTorch's convolutions take it; the JAX package is NHWC and
 reproduces ``nn.PixelShuffle``'s channel order (appearance.py:49-56), so the
@@ -63,10 +65,12 @@ def _conv(cin: int, cout: int) -> nn.Conv2d:
 
 
 class AppearanceNetwork(nn.Module):
-    """(B, 3+64, H/32, W/32) -> multiplicative map (B, 3, H, W)."""
+    """(B, 3+64, H/32, W/32) -> multiplicative map (B, 3, H, W) in
+    (0, map_scale)."""
 
-    def __init__(self):
+    def __init__(self, map_scale: float = 1.0):
         super().__init__()
+        self.map_scale = float(map_scale)
         self.conv0 = _conv(3 + EMBED_DIM, 256)
         self.up = nn.ModuleList(
             [_conv(cin // 4, cout)
@@ -79,7 +83,8 @@ class AppearanceNetwork(nn.Module):
         for conv in self.up:
             x = F.relu(conv(F.pixel_shuffle(x, 2)))
         x = bilinear_resize(x, h, w)
-        return torch.sigmoid(self.conv2(F.relu(self.conv1(x))))
+        m = torch.sigmoid(self.conv2(F.relu(self.conv1(x))))
+        return m if self.map_scale == 1.0 else self.map_scale * m
 
     def convs(self) -> Iterator[nn.Conv2d]:
         """The convs in ``FLAX_CONV_PATHS`` order."""
@@ -99,10 +104,11 @@ def _lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
 
 
 def init_appearance(generator: torch.Generator, device,
-                    num_embeddings: int = NUM_EMBEDDINGS) -> Dict:
+                    num_embeddings: int = NUM_EMBEDDINGS,
+                    map_scale: float = 1.0) -> Dict:
     """{"embeddings": (E, 64) N(0, 0.01^2), "net": AppearanceNetwork with
     lecun-normal kernels and zero biases}, as init_appearance draws them."""
-    net = AppearanceNetwork()
+    net = AppearanceNetwork(map_scale)
     with torch.no_grad():
         for conv in net.convs():
             _lecun_normal_(conv.weight, generator)
@@ -140,10 +146,11 @@ def net_tensors_from_flax(tree: Mapping, device) -> list:
     return out
 
 
-def appearance_from_flax(app: Mapping, device) -> Dict:
+def appearance_from_flax(app: Mapping, device,
+                         map_scale: float = 1.0) -> Dict:
     """{"embeddings": (E, 64), "net": Flax tree} as numpy arrays -> the
     port's appearance state with the same weights."""
-    net = AppearanceNetwork().to(device)
+    net = AppearanceNetwork(map_scale).to(device)
     with torch.no_grad():
         for p, t in zip(net.parameters(), net_tensors_from_flax(app["net"],
                                                                 device)):

@@ -17,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import warnings
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -96,7 +97,13 @@ class PipelineConfig:
     debug: bool = False
     use_appearance: bool = True
     share_appearance: bool = False     # the JAX fleet's; no fleet here yet
-    app_map_scale: float = 1.0         # the JAX package's; 1 only here
+    # The appearance map is app_map_scale * sigmoid(x)
+    # (models/appearance.py); 1 is the reference. Taken from
+    # PCP_APP_MAP_SCALE when the config is built, so it persists in
+    # cfg_args.json, and load_cfg_args warns when the two differ.
+    app_map_scale: float = field(
+        default_factory=lambda: float(
+            os.environ.get("PCP_APP_MAP_SCALE", "1")))
 
 
 @dataclass
@@ -122,6 +129,14 @@ def save_cfg_args(model_path: str, cfg: TrainRunConfig) -> None:
 def load_cfg_args(model_path: str) -> TrainRunConfig:
     with open(os.path.join(model_path, "cfg_args.json")) as f:
         d = json.load(f)
+    saved_scale = d.get("pipeline", {}).get("app_map_scale")
+    env_scale = PipelineConfig().app_map_scale
+    if saved_scale is not None and abs(saved_scale - env_scale) > 1e-9:
+        warnings.warn(
+            f"cfg_args records app_map_scale={saved_scale} but this "
+            f"process runs with PCP_APP_MAP_SCALE={env_scale} — a config "
+            f"built here renders the appearance maps differently; set "
+            f"PCP_APP_MAP_SCALE={saved_scale}")
     return TrainRunConfig(
         model=ModelConfig(**d["model"]),
         optim=OptimConfig(**d["optim"]),

@@ -6,15 +6,23 @@ iterations), the densify cadence (every ``densification_interval`` after
 ``densify_from_iter`` while below ``densify_until_iter``) and the opacity
 reset, both with the reference's strict bounds, the GT bank on the card as
 uint8, L1/PSNR on the held-out views at ``test_iterations``, PLY saves at
-``save_iterations`` and a cooperative STOP file.
+``save_iterations``, full checkpoints (``chkpnt<it>.pth``) at
+``checkpoint_iterations``, a cooperative STOP file, the ``pipeline.debug``
+NaN dump and a ``torch.profiler`` trace.
+
+Resume (``state`` and ``start_iter``) follows the JAX package: the loop runs
+iterations ``start_iter + 1 .. iterations``, and both the camera shuffle and
+the densify generator restart from ``cfg.seed`` (JAX loop.py:221-224,
+434-435, 461-465), so a resumed run is JAX's resumed run, not the unbroken
+one.
 
 Not here (queued in ROADMAP.md): the JAX package's tile-table re-tuning
-(exact binning has nothing to re-tune), the viewer, checkpoint resume and
-the ``--debug`` NaN dump.
+(exact binning has nothing to re-tune) and the viewer.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import random
@@ -30,6 +38,7 @@ from pcp_tpu_torch.models import gaussians as G
 from pcp_tpu_torch.models.appearance import init_appearance
 from pcp_tpu_torch.scene import cameras as cam_mod
 from pcp_tpu_torch.scene.dataset import SceneInfo, split_train_test
+from pcp_tpu_torch.train import checkpoint as ckpt
 from pcp_tpu_torch.train import optim
 from pcp_tpu_torch.train.config import TrainRunConfig, save_cfg_args
 from pcp_tpu_torch.train.logging import TrainLogger
@@ -52,12 +61,10 @@ def init_state(scene: SceneInfo, cfg: TrainRunConfig,
                             capacity=cfg.optim.capacity,
                             percent_dense=cfg.optim.percent_dense)
     params, alive = G.create_from_pcd(scene.points, scene.colors, gcfg, dev)
-    if cfg.pipeline.app_map_scale != 1.0:
-        raise ValueError("app_map_scale != 1 (the JAX package's "
-                         "PCP_APP_MAP_SCALE) is not ported")
     app = opt_a = None
     if cfg.pipeline.use_appearance:
-        app = init_appearance(generator, dev)
+        app = init_appearance(generator, dev,
+                              map_scale=cfg.pipeline.app_map_scale)
         opt_a = optim.init_adam(app_groups(app))
     return TrainState(params=params, app=app, opt_g=optim.init_adam(params),
                       opt_a=opt_a, alive=alive,
@@ -86,6 +93,37 @@ def save_model(state: TrainState, model_path: str, iteration: int,
     return path
 
 
+
+
+def _profiler(enabled: bool, model_path: str, dev: torch.device):
+    """A ``torch.profiler`` trace of the run under <model>/trace (in place
+    of JAX's ``jax.profiler`` trace, loop.py:430-433), or nothing."""
+    if not enabled:
+        return contextlib.nullcontext()
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(
+        activities=activities,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(
+            os.path.join(model_path, "trace")))
+
+
+def _dump_step_inputs(path: str, state_host: List[np.ndarray], cam,
+                      iteration: int, sh_degree: int) -> None:
+    """The pre-step state's leaves and the camera's inputs in one npz, with
+    the keys of JAX's dump (loop.py:648-660)."""
+    arrs = {f"state_leaf_{i}": a for i, a in enumerate(state_host)}
+    arrs["viewmat"] = np.asarray(cam.viewmat)
+    arrs["gt_image"] = np.asarray(cam.gt_image)
+    arrs["intrin"] = np.asarray([cam.fx, cam.fy, cam.width / 2.0,
+                                 cam.height / 2.0], np.float32)
+    arrs["view_uid"] = np.asarray(cam.uid)
+    arrs["iteration"] = np.asarray(iteration)
+    arrs["sh_degree"] = np.asarray(sh_degree)
+    np.savez_compressed(path, **arrs)
+
+
 def train_scene(
     scene: SceneInfo,
     cfg: TrainRunConfig,
@@ -93,17 +131,21 @@ def train_scene(
     save_name: str = "point_cloud",
     log_fn: Optional[Callable[[str], None]] = print,
     state: Optional[TrainState] = None,
+    start_iter: int = 0,
     log_interval: int = 100,
+    profile: bool = False,
     device: DeviceLike = None,
 ) -> TrainState:
     """Train one scene/block on ``device`` (the card unless ``"cpu"``);
     writes its outputs under cfg.model.model_path. Metrics are read and
-    logged at iteration 1 and every ``log_interval`` iterations."""
+    logged at iteration 1 and every ``log_interval`` iterations. A given
+    ``state`` (a loaded checkpoint) resumes at ``start_iter + 1``."""
     dev = resolve_device(device)
     model_path = cfg.model.model_path
     os.makedirs(model_path, exist_ok=True)
     save_cfg_args(model_path, cfg)
     ocfg = cfg.optim
+    debug = cfg.pipeline.debug
 
     train_infos, test_infos = split_train_test(
         scene.cameras, cfg.model.eval, cfg.model.llffhold,
@@ -117,16 +159,17 @@ def train_scene(
     background = torch.tensor(
         [1.0, 1.0, 1.0] if cfg.model.white_background else [0.0, 0.0, 0.0],
         device=dev)
+    # a fresh run draws the appearance init and then the densify noise from
+    # this generator; a resumed one starts its densify draws at the seed
     generator = torch.Generator().manual_seed(cfg.seed)
     if state is None:
         state = init_state(scene, cfg, generator, dev)
 
-    logger = TrainLogger(model_path)
     rng = random.Random(cfg.seed)
     stack: List[int] = []
     ema_loss = 0.0
     t0 = t_last = time.time()
-    it_last = 0
+    it_last = start_iter
     # GT bank on the card as uint8: the sources are 8-bit images, so u8
     # holds them exactly at a quarter of the memory (loop.py:440-460);
     # images outside [0, 1] stay f32.
@@ -143,75 +186,98 @@ def train_scene(
             buf = gt_dev.setdefault(cam.uid, torch.as_tensor(img, device=dev))
         return buf
 
-    for it in range(1, ocfg.iterations + 1):
-        if not stack:
-            stack = list(range(len(cams)))
-            rng.shuffle(stack)
-        cam = cams[stack.pop()]
-        sh_degree = min(cfg.model.sh_degree, (it - 1) // 1000)
-        viewmat, intrin = cam_mod.camera_tensors(cam, dev)
-        state, metrics = train_step_impl(
-            state, viewmat, intrin, gt_of(cam), cam.uid, background,
-            scene.extent, ocfg=ocfg, image_size=(cam.width, cam.height),
-            sh_degree=sh_degree, use_appearance=cfg.pipeline.use_appearance)
+    def checkpoint(it):
+        ckpt.save(os.path.join(model_path, f"chkpnt{it}.pth"), state, it)
 
-        # densification cadence (train.py:140-152); both bounds are strict
-        if it < ocfg.densify_until_iter:
-            if (it % ocfg.densification_interval == 0
-                    and it > ocfg.densify_from_iter):
-                state = densify_impl(
-                    state, generator, scene.extent, ocfg=ocfg,
-                    prune_big=it > ocfg.opacity_reset_interval)
-            if it % ocfg.opacity_reset_interval == 0 or (
-                    cfg.model.white_background
-                    and it == ocfg.densify_from_iter):
-                state = opacity_reset_impl(state)
+    logger = TrainLogger(model_path)
+    with contextlib.closing(logger), _profiler(profile, model_path, dev):
+        for it in range(start_iter + 1, ocfg.iterations + 1):
+            if not stack:
+                stack = list(range(len(cams)))
+                rng.shuffle(stack)
+            cam = cams[stack.pop()]
+            sh_degree = min(cfg.model.sh_degree, (it - 1) // 1000)
+            viewmat, intrin = cam_mod.camera_tensors(cam, dev)
+            if debug:
+                # the step updates the state in place: keep the inputs
+                prev_host = ckpt.host_leaves(state)
+            state, metrics = train_step_impl(
+                state, viewmat, intrin, gt_of(cam), cam.uid, background,
+                scene.extent, ocfg=ocfg, image_size=(cam.width, cam.height),
+                sh_degree=sh_degree,
+                use_appearance=cfg.pipeline.use_appearance)
+            if debug and not np.isfinite(float(metrics["loss"])):
+                # forensic dump, as the reference rasterizer's snapshot on a
+                # CUDA error + --detect_anomaly (train.py:256)
+                dump = os.path.join(model_path, f"nan_snapshot_{it}.npz")
+                _dump_step_inputs(dump, prev_host, cam, it, sh_degree)
+                raise FloatingPointError(
+                    f"non-finite loss at iteration {it} "
+                    f"(loss={float(metrics['loss'])}); step inputs dumped "
+                    f"to {dump}")
 
-        if it % log_interval == 0 or it == 1:
-            loss = float(metrics["loss"])
-            ema_loss = loss if it == 1 else 0.6 * ema_loss + 0.4 * loss
-            now = time.time()
-            n_alive = int(state.alive.sum())
-            if bool(metrics["tile_saturated"]) and log_fn:
-                log_fn(f"[warn] iter {it}: per-tile saturation (densest tile "
-                       f"holds {int(metrics['max_tile_load'])} Gaussians > "
-                       f"max_per_tile={ocfg.max_per_tile}); the farthest are "
-                       f"dropped in dense tiles -- raise --max_per_tile")
-            logger.scalars(it, {
-                "train_loss_patches/total_loss": loss,
-                "total_points": n_alive,
-                "iter_time": (now - t_last) / max(it - it_last, 1),
-                "n_pairs": float(metrics["n_pairs"]),
-                "n_dropped": metrics["n_dropped"],
-            })
-            t_last, it_last = now, it
-            if log_fn:
-                log_fn(f"iter {it:6d} loss {ema_loss:.5f} alive {n_alive} "
-                       f"({now - t0:.1f}s)")
-        if it in cfg.test_iterations and test_cams:
-            m = evaluate_cameras(state, test_cams, sh_degree, background, ocfg)
-            if log_fn:
-                log_fn(f"[eval {it}] test l1 {m['l1']:.4f} "
-                       f"psnr {m['psnr']:.2f}")
-            logger.scalars(it, {"test/loss_viewpoint_l1": m["l1"],
-                                "test/loss_viewpoint_psnr": m["psnr"]})
-            logger.histogram(
-                it, "scene/opacity_histogram",
-                G.opacity_act(state.params["opacity"])[state.alive, 0]
-                .cpu().numpy())
-            with open(os.path.join(model_path, f"eval_{it}.json"), "w") as f:
-                json.dump(m, f)
-        if it in cfg.save_iterations:
-            save_model(state, model_path, it, save_name)
-        # cooperative early stop: `touch <model_path>/STOP` saves a PLY at
-        # the current iteration and returns
-        if it % 50 == 0 and os.path.exists(os.path.join(model_path, "STOP")):
-            if log_fn:
-                log_fn(f"STOP file seen at iter {it}: saving and exiting")
-            save_model(state, model_path, it, save_name)
-            logger.close()
-            return state
+            # densification cadence (train.py:140-152); both bounds strict
+            if it < ocfg.densify_until_iter:
+                if (it % ocfg.densification_interval == 0
+                        and it > ocfg.densify_from_iter):
+                    state = densify_impl(
+                        state, generator, scene.extent, ocfg=ocfg,
+                        prune_big=it > ocfg.opacity_reset_interval)
+                if it % ocfg.opacity_reset_interval == 0 or (
+                        cfg.model.white_background
+                        and it == ocfg.densify_from_iter):
+                    state = opacity_reset_impl(state)
 
-    save_model(state, model_path, ocfg.iterations, save_name)
-    logger.close()
+            if it % log_interval == 0 or it == 1:
+                loss = float(metrics["loss"])
+                ema_loss = loss if it == 1 else 0.6 * ema_loss + 0.4 * loss
+                now = time.time()
+                n_alive = int(state.alive.sum())
+                if bool(metrics["tile_saturated"]) and log_fn:
+                    log_fn(f"[warn] iter {it}: per-tile saturation (densest "
+                           f"tile holds {int(metrics['max_tile_load'])} "
+                           f"Gaussians > max_per_tile={ocfg.max_per_tile}); "
+                           f"the farthest are dropped in dense tiles -- "
+                           f"raise --max_per_tile")
+                logger.scalars(it, {
+                    "train_loss_patches/total_loss": loss,
+                    "total_points": n_alive,
+                    "iter_time": (now - t_last) / max(it - it_last, 1),
+                    "n_pairs": float(metrics["n_pairs"]),
+                    "n_dropped": metrics["n_dropped"],
+                })
+                t_last, it_last = now, it
+                if log_fn:
+                    log_fn(f"iter {it:6d} loss {ema_loss:.5f} alive "
+                           f"{n_alive} ({now - t0:.1f}s)")
+            if it in cfg.test_iterations and test_cams:
+                m = evaluate_cameras(state, test_cams, sh_degree, background,
+                                     ocfg)
+                if log_fn:
+                    log_fn(f"[eval {it}] test l1 {m['l1']:.4f} "
+                           f"psnr {m['psnr']:.2f}")
+                logger.scalars(it, {"test/loss_viewpoint_l1": m["l1"],
+                                    "test/loss_viewpoint_psnr": m["psnr"]})
+                logger.histogram(
+                    it, "scene/opacity_histogram",
+                    G.opacity_act(state.params["opacity"])[state.alive, 0]
+                    .cpu().numpy())
+                with open(os.path.join(model_path, f"eval_{it}.json"),
+                          "w") as f:
+                    json.dump(m, f)
+            if it in cfg.save_iterations:
+                save_model(state, model_path, it, save_name)
+            if it in cfg.checkpoint_iterations:
+                checkpoint(it)
+            # cooperative early stop: `touch <model_path>/STOP` saves a PLY
+            # and a resumable checkpoint at the current iteration and returns
+            if it % 50 == 0 and os.path.exists(
+                    os.path.join(model_path, "STOP")):
+                if log_fn:
+                    log_fn(f"STOP file seen at iter {it}: saving and exiting")
+                save_model(state, model_path, it, save_name)
+                checkpoint(it)
+                return state
+
+        save_model(state, model_path, ocfg.iterations, save_name)
     return state

@@ -502,3 +502,97 @@ def test_evaluate_images_on_the_card_matches_the_cpu(card, tmp_path):
         assert abs(g["PSNR"] - c["PSNR"]) <= 1e-3
         assert abs(g["SSIM"] - c["SSIM"]) <= 1e-5
         assert abs(g["LPIPS"] - c["LPIPS"]) <= 1e-5 * abs(c["LPIPS"])
+
+
+def test_grid_screen_on_the_card_matches_the_cpu(card):
+    """The partition's outlier screen (integer counts, exact in any order)
+    gives the same masks on the card as on the CPU."""
+    from pcp_tpu_torch.partition.points import _grid_screen
+
+    rng = np.random.default_rng(4)
+    pts = np.concatenate([
+        np.stack([rng.uniform(-15, 15, 5000), rng.uniform(-15, 15, 5000),
+                  rng.normal(0, 0.5, 5000)], -1),
+        rng.uniform(-20, 20, (200, 3))]).astype(np.float32)
+    on_card = _grid_screen(pts, 5, 1.0, card)
+    on_cpu = _grid_screen(pts, 5, 1.0, "cpu")
+    for a, b in zip(on_card, on_cpu):
+        np.testing.assert_array_equal(a, b)
+    assert on_card[0].any() and on_card[1].any()
+
+
+def test_checkpoint_round_trip_on_the_card(card, tmp_path, monkeypatch):
+    """A card state's checkpoint loads back bit for bit, on the card and on
+    the CPU."""
+    import functools
+
+    from pcp_tpu_torch.cli import train
+    from pcp_tpu_torch.scene import load_colmap_scene
+    from pcp_tpu_torch.train import checkpoint as ckpt
+    from pcp_tpu_torch.train import loop
+    from pcp_tpu_torch.train.config import OptimConfig, TrainRunConfig
+
+    monkeypatch.setattr(loop, "TrainLogger", functools.partial(
+        loop.TrainLogger, use_tensorboard=False))
+    scene = tmp_path / "scene"
+    _tiny_colmap_scene(scene, 16)
+    out = tmp_path / "out"
+    state = train.main(["-s", str(scene), "-m", str(out), "--iterations",
+                        "6", "--capacity", "1024", "--densify_from_iter",
+                        "2", "--densification_interval", "3",
+                        "--checkpoint_iterations", "6", "--quiet"])
+    cfg = TrainRunConfig(optim=OptimConfig(capacity=1024))
+    info = load_colmap_scene(str(scene))
+    for dev in (card, torch.device("cpu")):
+        template = loop.init_state(info, cfg, torch.Generator().manual_seed(1),
+                                   dev)
+        loaded, it = ckpt.load(str(out / "chkpnt6.pth"), template)
+        assert it == 6
+        for a, b in zip(ckpt.leaves(state), ckpt.leaves(loaded)):
+            if isinstance(a, torch.Tensor):
+                assert b.device.type == dev.type
+                assert torch.equal(a.cpu(), b.cpu())
+            else:
+                assert a == b == 6
+
+
+def test_pipeline_on_the_card(card, tmp_path, monkeypatch):
+    """partition -> auto_train --sequential -> merge -> render -> metrics on
+    the card (the CLIs' default device) on a tiny scene: every block trains
+    through the backward kernels, the merged model renders and scores."""
+    import functools
+    import json
+    import os
+
+    from pcp_tpu_torch.cli import auto_train, merge, metrics, partition, render
+    from pcp_tpu_torch.train import loop
+
+    monkeypatch.setattr(loop, "TrainLogger", functools.partial(
+        loop.TrainLogger, use_tensorboard=False))
+    scene = tmp_path / "scene"
+    _tiny_colmap_scene(scene, 17)
+    model = scene / "model"
+    records = partition.main([str(scene), "--threshold", "80",
+                              "--expansion_distance", "10",
+                              "--visible_rate", "0.05", "--no_plots",
+                              "--llffhold", "2"])
+    assert len(records) >= 2
+    visible = model / "split_result" / "visible"
+    composite.LAUNCHES.clear()
+    auto_train.main(["--base_path", str(visible), "--sequential",
+                     "--iterations", "10", "--capacity", "1024",
+                     "--resolution", "1", "--densify_from_iter", "3",
+                     "--densification_interval", "5"])
+    manifest = json.loads((visible / "train_status.json").read_text())
+    blocks = sorted(d for d in os.listdir(visible) if (visible / d).is_dir())
+    assert sorted(manifest) == blocks == sorted(
+        r.partition_id for r in records)
+    assert all(v["status"] == "done" for v in manifest.values()), manifest
+    assert composite.LAUNCHES["composite_bwd"] == 10 * len(records)
+    assert composite.LAUNCHES["sorted_segment_sum"] == 10 * len(records)
+    merged = merge.main(["-m", str(model)])
+    assert len(merged["xyz"]) > 0
+    render.main(["-s", str(scene), "-m", str(model), "--llffhold", "2"])
+    res = metrics.main(["-m", str(model)])
+    (mean,) = [r["mean"] for r in res.values()]
+    assert np.isfinite(mean["PSNR"]) and np.isfinite(mean["SSIM"])
