@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's render, training, eval, pipeline and
-gather-experiment paths on one CUDA card and hold every kernel on them
-against its plain PyTorch version.
+"""Drive the PyTorch/CUDA port's render, training, eval, pipeline,
+multi-card and gather-experiment paths on one CUDA card and hold every
+kernel on them against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -58,15 +58,32 @@ there, needs no install step and nothing from the network. Phases:
     ``cli.merge``, ``cli.render`` of the held-out views and
     ``cli.metrics``; with the native libraries loaded and the card's
     outlier screen held to the native filter;
-16. the gather experiment (``pcp_tpu_torch.tools.exp_r2 gather``) at its
+16. the multi-card slice on the one card, on phase 15's 4 blocks through
+    ``cli.auto_train``: (a) the fleet (the default mode) with the cameras
+    and uint8 GT on the card and a rolling checkpoint at PIPE_CKPT, every
+    block marked done, block 0's PLY equal to phase 15's sequential block
+    0 byte for byte, and B1, B2 and B3 launched once per block step (B1
+    also per eval view); (b) ``--share_appearance`` host-fed, every
+    block's checkpoint holding the same finite appearance; (c) (b) again as
+    one NCCL rank under ``python -m torch.distributed.run --nproc_per_node
+    1 ... --distributed``, (b)'s bytes; (d) two ``--retry_failed`` resumes
+    from (a)'s PIPE_CKPT checkpoints, equal bytes; (e) ``--intra_block 1``
+    (one NCCL rank) on block 0, the sequential block 0's bytes, its
+    attribute and band gathers and the attribute gradient's all-to-all
+    issued over NCCL every step; (f) a
+    mixed-resolution shared fleet on the CPU and on the card, losses within
+    MIXED_TOL; then the warm fleet iteration beside 4 of phase 15's warm
+    steps, and the intra-block step at D = 1 beside the single-card step,
+    each with its device busy time;
+17. the gather experiment (``pcp_tpu_torch.tools.exp_r2 gather``) at its
     default shapes and at N = 2^20, each of its three forms held bit for
     bit to the plain version, with the byte bound and the plane form's
     sector floor; ``sort`` and ``xlagather`` once;
-17. one ``{"kernels": [...]}`` line, the card's name and power limit, and
+18. one ``{"kernels": [...]}`` line, the card's name and power limit, and
     the ``{"ok": true, ...}`` line last.
 
-Paths 4, 8, 12, 14, 15 and 16 each run with every launch count set to 0
-just before and read just after.
+Paths 4, 8, 12, 14, 15, 16a, 16e and 17 each run with every launch count
+set to 0 just before and read just after.
 
 Any failed check raises: the script then exits non-zero and prints no
 result line. Without a CUDA card it exits 1 before doing anything.
@@ -82,16 +99,21 @@ training repeats on the card.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import os
 import re
+import shutil
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -162,6 +184,12 @@ PIPE_POINTS, PIPE_AIR, PIPE_SIDE = 2_000_000, 20_000, 300.0
 PIPE_CAMS, PIPE_HEIGHT, PIPE_FX = 32, 120.0, 1000.0
 PIPE_THRESHOLD = 500_000
 PIPE_ITERS, PIPE_CKPT = 20, 10
+# The multi-card slice's mixed-resolution check: a 4,000-Gaussian scene
+# at 1280x800 / MIXED_RES (320x200), every other camera at half that, two
+# blocks in 2^13 slots, MIXED_STEPS shared-appearance fleet steps on the CPU
+# and on the card; their losses agree to MIXED_TOL relative
+MIXED_GAUSSIANS, MIXED_RES, MIXED_CAPACITY = 4_000, 4, 1 << 13
+MIXED_STEPS, MIXED_TOL = 3, 1e-4
 
 # Every kernel of the paths. ``replaces`` is the TPU kernel's pallas_call.
 KERNELS = [
@@ -1542,6 +1570,8 @@ def pipeline_path(root: Path, seed: int, dev, weights: str,
         resumed.append((losses, (out / "point_cloud" / f"iteration_"
                                  f"{PIPE_ITERS}" / "point_cloud.ply")
                         .read_bytes()))
+    seq0 = (block_dir / "output" / "point_cloud" / f"iteration_{PIPE_ITERS}"
+            / f"{bid}_point_cloud.ply").read_bytes()
     check(len(resumed[0][0]) == PIPE_ITERS - PIPE_CKPT,
           "the resume runs the steps after its checkpoint")
     check(resumed[0] == resumed[1],
@@ -1599,7 +1629,8 @@ def pipeline_path(root: Path, seed: int, dev, weights: str,
            "render_ms_per_view": split_s[0] * 1e3 / n_views,
            "resume_s": resume_s, "phase_s": time.perf_counter() - t_phase,
            "views": views, "scores": mean, "lpips_synthetic": True,
-           "screen": screen, "card": smi}
+           "screen": screen, "card": smi,
+           "visible": visible, "block0_ply": seq0}
     log(f"pipeline [{smi}]: partition {partition_s:.2f} s; {len(points)} "
         f"blocks, points {points}")
     log(f"pipeline [{smi}]: train s {train_s}, median warm step ms "
@@ -1614,7 +1645,348 @@ def pipeline_path(root: Path, seed: int, dev, weights: str,
 
 
 # --------------------------------------------------------------------------
-# 16. the gather experiment
+# 16. the multi-card slice on one card
+# --------------------------------------------------------------------------
+
+
+def _blocks_copy(visible: Path, dst: Path, only=None) -> Path:
+    """The partition's blocks (COLMAP data and images) under ``dst``,
+    without their outputs and the manifest; ``only`` keeps those blocks."""
+    dst.mkdir(parents=True)
+    for b in sorted(p.name for p in visible.iterdir() if p.is_dir()):
+        if only is None or b in only:
+            shutil.copytree(visible / b, dst / b,
+                            ignore=shutil.ignore_patterns("output"))
+    return dst
+
+
+def _block_plys(base: Path) -> dict:
+    return {b.name: (b / f"partition_{b.name}" / "output" / "point_cloud"
+                     / f"iteration_{PIPE_ITERS}" / f"{b.name}_point_cloud.ply")
+            .read_bytes() for b in sorted(base.iterdir()) if b.is_dir()}
+
+
+def _app_leaves(path: Path) -> list:
+    """The appearance leaves of a checkpoint: the embeddings and the net's
+    parameters follow the Gaussian params (``train/checkpoint._slots``)."""
+    from pcp_tpu_torch.models.appearance import AppearanceNetwork
+
+    leaves = torch.load(path, map_location="cpu", weights_only=True)["leaves"]
+    n_net = len(list(AppearanceNetwork().parameters()))
+    return leaves[len(G.PARAM_KEYS):len(G.PARAM_KEYS) + 1 + n_net]
+
+
+def _mixed_fleet_losses(scene_dir: Path, dev) -> list:
+    """Losses of MIXED_STEPS shared-appearance fleet steps of two blocks
+    whose cameras alternate between full and half resolution (the
+    pad-and-mask path), from one start state, on ``dev``."""
+    import dataclasses
+
+    from pcp_tpu_torch.parallel.fleet import (build_camera_bank,
+                                              make_fleet_step)
+    from pcp_tpu_torch.train import checkpoint as ckpt
+    from pcp_tpu_torch.train.config import (ModelConfig, PipelineConfig,
+                                            TrainRunConfig)
+    from pcp_tpu_torch.train.loop import init_state
+
+    info = load_colmap_scene(str(scene_dir))
+    for i, c in enumerate(info.cameras):
+        if i % 2:
+            info.cameras[i] = dataclasses.replace(
+                c, width=c.width // 2, height=c.height // 2)
+    cams = [cam_mod.from_info(i, MIXED_RES) for i in info.cameras]
+    frame = (max(c.width for c in cams), max(c.height for c in cams))
+    cfg = TrainRunConfig(model=ModelConfig(sh_degree=SH_DEGREE),
+                         optim=OptimConfig(capacity=MIXED_CAPACITY),
+                         pipeline=PipelineConfig(use_appearance=True,
+                                                 share_appearance=True))
+    states = []
+    for b in range(2):
+        # the start state made on the CPU and copied in: the same bits on
+        # both devices
+        host = init_state(info, cfg, torch.Generator().manual_seed(b), "cpu")
+        path = scene_dir.parent / f"mixed_{b}.pth"
+        ckpt.save(str(path), host, 0)
+        st, _ = ckpt.load(str(path), init_state(
+            info, cfg, torch.Generator().manual_seed(b), dev))
+        path.unlink()
+        states.append(st)
+    shared = TrainState({}, states[0].app, None, states[0].opt_a, None, {})
+    states[1].app, states[1].opt_a = shared.app, shared.opt_a
+    step = make_fleet_step(cfg.optim, frame, use_appearance=True,
+                           share_appearance=True, n_blocks=2)
+    (bank,) = build_camera_bank([cams], frame, dev)
+    bg = torch.zeros(3, device=dev)
+    losses = []
+    for i in range(MIXED_STEPS):
+        views = [bank.view((i + b) % len(cams)) for b in range(2)]
+        m = step(states, [info.extent] * 2, views, bg, SH_DEGREE, [0, 1],
+                 shared)
+        losses.append([float(x["loss"]) for x in m])
+    return losses
+
+
+def intra_vs_single(block_dir: Path, dev) -> dict:
+    """The warm step (median of STEP_REPS, synchronised) and device busy of
+    the single-card step and of the intra-block step at D = 1 (inside a
+    one-rank NCCL group), on the same full-width block state."""
+    from pcp_tpu_torch.parallel import distributed as pdist
+    from pcp_tpu_torch.parallel.intra_block import sharded_render
+    from pcp_tpu_torch.train.config import TrainRunConfig
+    from pcp_tpu_torch.train.loop import init_state
+
+    info = load_colmap_scene(str(block_dir))
+    cam = cam_mod.from_info(info.cameras[0], -1)
+    gt = torch.as_tensor(np.round(cam.gt_image * 255.0).astype(np.uint8),
+                         device=dev)
+    ocfg = OptimConfig(capacity=CAPACITY)
+    state = init_state(info, TrainRunConfig(optim=ocfg),
+                       torch.Generator().manual_seed(0), dev)
+    viewmat, intrin = cam_mod.camera_tensors(cam, dev)
+    bg = torch.zeros(3, device=dev)
+    out = {}
+    with pdist.group_of(dev, 1):
+        for name, render in (("single", None), ("intra_block_d1",
+                                                 sharded_render)):
+            def step(render=render):
+                return train_step_impl(
+                    state, viewmat, intrin, gt, cam.uid, bg, info.extent,
+                    ocfg=ocfg, image_size=(cam.width, cam.height),
+                    sh_degree=SH_DEGREE, use_appearance=True, render=render)
+            times, _ = timed_steps(step)
+            busy = sum(ms for _, ms in device_kernels(profiled_steps(step), 3))
+            out[name] = {"step_ms": statistics.median(times),
+                         "step_ms_all": times, "device_busy_ms": busy}
+    return out
+
+
+def multi_path(root: Path, pipe: dict, dev, smi: str) -> dict:
+    """The multi-card slice on the one card, on phase 15's partition (4
+    blocks of ~600k points at 1280x800, SH 3, appearance on, 2^20 slots,
+    PIPE_ITERS steps, densify at 10 and 20), through ``cli.auto_train``:
+    (a) the fleet with device-resident cameras and a rolling checkpoint at
+    PIPE_CKPT, every launch count set to 0 just before and read just
+    after; (b) the fleet with one shared appearance, host-fed; (c) (b)
+    again as one NCCL rank under torchrun; (d) two ``--retry_failed``
+    resumes from (a)'s PIPE_CKPT checkpoints; (e) ``--intra_block 1`` on
+    block 0; (f) a mixed-resolution shared fleet on the CPU and on the
+    card. Then the fleet iteration's time, and the intra-block step's at
+    D = 1 beside the single-card step's."""
+    from pcp_tpu_torch.cli import auto_train as auto_train_cli
+    from pcp_tpu_torch.parallel import fleet
+
+    t_phase = time.perf_counter()
+    visible = pipe["visible"]
+    blocks = sorted(p.name for p in visible.iterdir() if p.is_dir())
+    flags = ["--iterations", str(PIPE_ITERS), "--densify_from_iter",
+             str(DENSIFY_FROM), "--densification_interval",
+             str(DENSIFY_EVERY), "--device", "cuda"]
+
+    def manifest_of(base):
+        m = json.loads((base / "train_status.json").read_text())
+        check(sorted(m) == blocks[:len(m)] and all(
+            v["status"] == "done" for v in m.values()),
+            f"every block marked done: {m}")
+        return m
+
+    # (a) the fleet, device-resident cameras, checkpoints at PIPE_CKPT
+    a_dir = _blocks_copy(visible, root / "a")
+    saved, iter_s = root / "ckpt", []
+    real_save, real_step = fleet._save, fleet.make_fleet_step
+
+    def spy_save(path, state, it):
+        real_save(path, state, it)
+        if it == PIPE_CKPT:
+            dst = saved / Path(path).relative_to(a_dir)
+            dst.parent.mkdir(parents=True, exist_ok=True)
+            shutil.copyfile(path, dst)
+
+    def timed_make(*a, **kw):
+        inner = real_step(*a, **kw)
+
+        def step(*sa, **skw):
+            t = time.perf_counter()
+            out = inner(*sa, **skw)
+            torch.cuda.synchronize()
+            iter_s.append(time.perf_counter() - t)
+            return out
+        return step
+
+    fleet._save, fleet.make_fleet_step = spy_save, timed_make
+    try:
+        composite.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        auto_train_cli.main(["--base_path", str(a_dir), "--device_data",
+                             "--fleet_checkpoint_interval", str(PIPE_CKPT),
+                             "--test_iterations", str(PIPE_ITERS), *flags])
+        torch.cuda.synchronize()
+        fleet_s = time.perf_counter() - t0
+        launches = counts()
+    finally:
+        fleet._save, fleet.make_fleet_step = real_save, real_step
+    manifest = manifest_of(a_dir)
+    check(len(manifest) == len(blocks) and all(
+        v.get("eval_iter") == PIPE_ITERS for v in manifest.values()),
+        f"every block scored at {PIPE_ITERS}: {manifest}")
+    a_plys = _block_plys(a_dir)
+    check(a_plys[blocks[0]] == pipe["block0_ply"],
+          "fleet block 0 writes the sequential block 0's PLY bytes")
+    n_eval = sum(len(range(n)[::max(1, n // 3)][:3]) for n in (
+        len(load_colmap_scene(str(visible / b / f"partition_{b}")).cameras)
+        for b in blocks))
+    n_steps = len(blocks) * PIPE_ITERS
+    check(launches == {"composite_fwd": n_steps + n_eval,
+                       "composite_bwd": n_steps,
+                       "sorted_segment_sum": n_steps, "gather_pack": 0},
+          f"the fleet launches B1, B2 and B3 per block step and B1 per "
+          f"eval view ({n_eval}): {launches}")
+    iter_ms = statistics.median(iter_s[1:]) * 1e3
+    seq_ms = sum(pipe["warm_step_ms"].values())
+    log(f"fleet (a) [{smi}]: {len(blocks)} blocks x {PIPE_ITERS} steps in "
+        f"{fleet_s:.1f} s, warm fleet iteration {iter_ms:.3f} ms (median, "
+        f"synchronised) vs 4 sequential warm steps {seq_ms:.3f} ms "
+        f"(phase 15's); launches {launches}; block 0 == sequential")
+
+    # (b) one shared appearance, host-fed
+    b_dir = _blocks_copy(visible, root / "b")
+    t0 = time.perf_counter()
+    auto_train_cli.main(["--base_path", str(b_dir), "--share_appearance",
+                         *flags])
+    shared_s = time.perf_counter() - t0
+    manifest_of(b_dir)
+    apps = [_app_leaves(b_dir / b / f"partition_{b}" / "output" /
+                        fleet.FLEET_CKPT_NAME) for b in blocks]
+    check(all(torch.isfinite(t).all() for t in apps[0]),
+          "the shared appearance is finite")
+    check(all(len(a) == len(apps[0]) and all(torch.equal(x, y) for x, y in
+                                             zip(a, apps[0])) for a in apps),
+          "every block's checkpoint holds the same appearance")
+    b_plys = _block_plys(b_dir)
+    check(b_plys != a_plys, "sharing the appearance changes the blocks")
+
+    # (c) (b) as one NCCL rank under torchrun
+    c_dir = _blocks_copy(visible, root / "c")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+         "1", "--master_addr", "127.0.0.1", "--master_port", str(port), "-m",
+         "pcp_tpu_torch.cli.auto_train", "--distributed", "--base_path",
+         str(c_dir), "--share_appearance", "--fleet_checkpoint_interval",
+         "0", *flags], cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(ROOT),
+                 OMP_NUM_THREADS=str(torch.get_num_threads())))
+    nccl_s = time.perf_counter() - t0
+    check(run.returncode == 0, f"torchrun auto_train exits 0: "
+          f"{run.stdout[-2000:]} {run.stderr[-3000:]}")
+    check("distributed: rank 0 of 1 on" in run.stdout,
+          f"one NCCL rank joined: {run.stdout[-2000:]}")
+    manifest_of(c_dir)
+    check(_block_plys(c_dir) == b_plys,
+          "one NCCL rank under torchrun writes (b)'s bytes")
+
+    # (d) two resumes from (a)'s PIPE_CKPT checkpoints
+    t0 = time.perf_counter()
+    resumed = []
+    for name in ("d1", "d2"):
+        d_dir = _blocks_copy(visible, root / name)
+        shutil.copytree(saved, d_dir, dirs_exist_ok=True)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            auto_train_cli.main(["--base_path", str(d_dir), "--retry_failed",
+                                 "--device_data",
+                                 "--fleet_checkpoint_interval", "0", *flags])
+        check(f"resuming from iteration {PIPE_CKPT}" in out.getvalue(),
+              f"the fleet resumed at {PIPE_CKPT}: {out.getvalue()[-1500:]}")
+        manifest_of(d_dir)
+        resumed.append(_block_plys(d_dir))
+    check(resumed[0] == resumed[1], "two fleet resumes give the same bytes")
+    resume_s = time.perf_counter() - t0
+
+    # (e) intra-block at D = 1 on block 0, one NCCL rank; the collectives
+    # the sharded step issues are counted by backend
+    import torch.distributed as dist
+
+    e_dir = _blocks_copy(visible, root / "e", only=blocks[:1])
+    collectives: dict = {}
+
+    def counted(name):
+        real = getattr(dist, name)
+
+        def call(*a, **kw):
+            key = f"{name}/{dist.get_backend()}"
+            collectives[key] = collectives.get(key, 0) + 1
+            return real(*a, **kw)
+        return call
+
+    composite.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for name in ("all_gather", "all_to_all_single"):
+            stack.enter_context(mock.patch.object(dist, name,
+                                                  counted(name)))
+        auto_train_cli.main(["--base_path", str(e_dir), "--intra_block",
+                             "1", *flags])
+    torch.cuda.synchronize()
+    intra_s = time.perf_counter() - t0
+    intra_launches = counts()
+    # a step gathers the attribute rows, depths, rects and the band, and
+    # its backward sends the attribute gradient through one all-to-all
+    check(collectives.get("all_to_all_single/nccl") == PIPE_ITERS
+          and collectives.get("all_gather/nccl", 0) >= 4 * PIPE_ITERS,
+          f"intra-block D = 1 gathers over NCCL every step: {collectives}")
+    manifest_of(e_dir)
+    check(_block_plys(e_dir)[blocks[0]] == pipe["block0_ply"],
+          "intra-block D = 1 writes the sequential block 0's PLY bytes")
+    check(intra_launches == {"composite_fwd": PIPE_ITERS,
+                             "composite_bwd": PIPE_ITERS,
+                             "sorted_segment_sum": PIPE_ITERS,
+                             "gather_pack": 0},
+          f"intra-block launches B1, B2 and B3 once a step: "
+          f"{intra_launches}")
+
+    # (f) a mixed-resolution shared fleet, CPU against card
+    t0 = time.perf_counter()
+    small, _ = write_scene(root / "mixed", 3, MIXED_GAUSSIANS, 4, dev)
+    cpu_l = _mixed_fleet_losses(small, torch.device("cpu"))
+    gpu_l = _mixed_fleet_losses(small, dev)
+    worst = max(abs(g - c) / abs(c) for gs, cs in zip(gpu_l, cpu_l)
+                for g, c in zip(gs, cs))
+    check(worst <= MIXED_TOL, f"mixed-resolution fleet losses on the card "
+          f"within {MIXED_TOL} of the CPU's: {gpu_l} vs {cpu_l}")
+    mixed_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    times = intra_vs_single(visible / blocks[0] / f"partition_{blocks[0]}",
+                            dev)
+    times_s = time.perf_counter() - t0
+    out = {"launches": launches, "intra_block_launches": intra_launches,
+           "intra_block_collectives": collectives,
+           "fleet_s": fleet_s, "shared_s": shared_s, "nccl_torchrun_s":
+           nccl_s, "resumes_s": resume_s, "intra_block_s": intra_s,
+           "mixed_s": mixed_s, "step_times_s": times_s,
+           "fleet_iteration_ms": iter_ms,
+           "fleet_iteration_ms_all": [x * 1e3 for x in iter_s],
+           "sequential_4_steps_ms": seq_ms, "step_times": times,
+           "mixed_losses": {"cpu": cpu_l, "cuda": gpu_l, "max_rel": worst},
+           "phase_s": time.perf_counter() - t_phase, "card": smi}
+    log(f"fleet [{smi}]: (b) shared {shared_s:.1f} s, (c) torchrun NCCL "
+        f"{nccl_s:.1f} s == (b), (d) two resumes {resume_s:.1f} s equal, "
+        f"(e) intra-block D=1 {intra_s:.1f} s == sequential block 0, "
+        f"launches {intra_launches}, collectives {collectives}; (f) mixed "
+        f"losses max rel {worst:.2e} ({mixed_s:.1f} s); step timings "
+        f"{times_s:.1f} s")
+    log(f"fleet [{smi}]: step ms (median, synchronised) / device busy ms: "
+        + "; ".join(f"{k} {v['step_ms']:.3f} / {v['device_busy_ms']:.3f}"
+                    for k, v in times.items())
+        + f"; the phase {out['phase_s']:.1f} s")
+    return out
+
+
+# --------------------------------------------------------------------------
+# 17. the gather experiment
 # --------------------------------------------------------------------------
 
 
@@ -1763,6 +2135,8 @@ def main(argv=None) -> int:
         fe = full_eval_path(Path(tmp) / "full_eval", args.seed + 1, dev)
         pipe = pipeline_path(Path(tmp) / "pipeline", args.seed + 2, dev,
                              weights, smi)
+        multi = multi_path(Path(tmp) / "multi", pipe, dev, smi)
+        del pipe["visible"], pipe["block0_ply"]
 
         gather = gather_path()
         measured["gather_pack"] = gather_checks(gather["runs"], dev)
@@ -1771,12 +2145,15 @@ def main(argv=None) -> int:
 
     paths = {"render": run["launches"], "train": train["launches"],
              "metrics": ev["launches"], "full_eval": fe["launches"],
-             "pipeline": pipe["launches"], "exp_r2": gather["launches"]}
+             "pipeline": pipe["launches"], "fleet": multi["launches"],
+             "intra_block": multi["intra_block_launches"],
+             "exp_r2": gather["launches"]}
     main_path_of = {"composite_fwd": "train", "composite_bwd": "train",
                     "sorted_segment_sum": "train", "gather_pack": "exp_r2"}
     print(json.dumps({"render": dict(render, views=run["views"]),
                       "train": dict(train, step=step, small=small),
                       "eval": ev, "full_eval": fe, "pipeline": pipe,
+                      "multi": multi,
                       "exp_r2": dict(other, gather_by_layout=gather[
                           "by_layout"])}))
     print(json.dumps({"kernels": [

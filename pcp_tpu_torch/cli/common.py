@@ -58,7 +58,7 @@ def add_pipeline_args(p: argparse.ArgumentParser) -> None:
                         "nan_snapshot_<it>.npz and stop")
     p.add_argument("--no_appearance", action="store_true")
     p.add_argument("--share_appearance", action="store_true",
-                   help="the fleet's one shared appearance net (ROADMAP A5)")
+                   help="the fleet: one appearance net for every block")
 
 
 def add_device_arg(p: argparse.ArgumentParser) -> None:

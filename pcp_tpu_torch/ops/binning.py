@@ -52,14 +52,17 @@ def _ceil_log2(x: int) -> int:
     return max(1, (x - 1).bit_length())
 
 
-def pair_keys(rect, depths, tiles_x, tiles_y):
+def pair_keys(rect, depths, tiles_x, tiles_y, key_tiles=None):
     """(keys (P,) int64, gid (P,) int64, offsets (N + 1,) int64, n_pairs)
     for every Gaussian x tile pair of the rects, in Gaussian-major order;
-    Gaussian g's pairs are [offsets[g], offsets[g + 1])."""
+    Gaussian g's pairs are [offsets[g], offsets[g + 1]). ``key_tiles``
+    (default: the grid's own tile count) sets the key's depth precision,
+    so a band of a frame can sort its tiles exactly as the whole frame
+    does."""
     device = rect.device
     n = rect.shape[0]
     num_tiles = tiles_x * tiles_y
-    tile_bits = _ceil_log2(num_tiles + 1)
+    tile_bits = _ceil_log2(max(num_tiles, key_tiles or 0) + 1)
     depth_bits = 32 - tile_bits
     if tile_bits > 16:
         raise ValueError(f"{num_tiles} tiles do not fit the packed key")
@@ -88,10 +91,12 @@ def bin_gaussians(
     tiles_x: int,
     tiles_y: int,
     max_per_tile: int,
+    key_tiles=None,
 ) -> TileBins:
     num_tiles = tiles_x * tiles_y
-    depth_bits = 32 - _ceil_log2(num_tiles + 1)
-    keys, gid, offsets, n_pairs = pair_keys(rect, depths, tiles_x, tiles_y)
+    depth_bits = 32 - _ceil_log2(max(num_tiles, key_tiles or 0) + 1)
+    keys, gid, offsets, n_pairs = pair_keys(rect, depths, tiles_x, tiles_y,
+                                            key_tiles)
     s_key, order = torch.sort(keys, stable=True)
     gids = gid[order].to(torch.int32)
     s_tile = s_key >> depth_bits

@@ -96,7 +96,7 @@ class PipelineConfig:
     compute_cov3D_python: bool = False
     debug: bool = False
     use_appearance: bool = True
-    share_appearance: bool = False     # the JAX fleet's; no fleet here yet
+    share_appearance: bool = False     # the fleet: one appearance net
     # The appearance map is app_map_scale * sigmoid(x)
     # (models/appearance.py); 1 is the reference. Taken from
     # PCP_APP_MAP_SCALE when the config is built, so it persists in

@@ -7,13 +7,21 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
 
 class TrainLogger:
-    def __init__(self, model_path: str, use_tensorboard: bool = True):
+    """``use_tensorboard`` defaults to on unless the environment sets
+    ``PCP_TENSORBOARD=0``. Only the tests set it: it reaches the ranks
+    they start in new processes, where a patched ``TrainLogger`` does
+    not."""
+
+    def __init__(self, model_path: str,
+                 use_tensorboard: Optional[bool] = None):
+        if use_tensorboard is None:
+            use_tensorboard = os.environ.get("PCP_TENSORBOARD", "1") != "0"
         self.model_path = model_path
         os.makedirs(model_path, exist_ok=True)
         self.jsonl = open(os.path.join(model_path, "train_log.jsonl"), "a")

@@ -121,15 +121,39 @@ def render_gaussians(
     )
 
 
-def photometric_loss(image, gt, app, view_idx, ocfg: OptimConfig):
+def photometric_loss(image, gt, app, view_idx, ocfg: OptimConfig,
+                     mask=None):
     """(1 - lambda) L1(decoupled, gt) + lambda (1 - SSIM(image, gt)): L1 on
     the appearance-decoupled image, SSIM on the raw render
-    (train.py:111-117)."""
+    (train.py:111-117); with ``mask`` (H, W) both run over its pixels
+    only."""
     decoupled = image if app is None else decouple_appearance(
         image, app, view_idx)[0]
     chw = lambda x: x.permute(2, 0, 1)  # noqa: E731
-    return (1.0 - ocfg.lambda_dssim) * l1_loss(decoupled, gt) + (
-        ocfg.lambda_dssim) * (1.0 - ssim(chw(image), chw(gt)))
+    return (1.0 - ocfg.lambda_dssim) * l1_loss(decoupled, gt, mask) + (
+        ocfg.lambda_dssim) * (1.0 - ssim(chw(image), chw(gt),
+                                         valid_mask=mask))
+
+
+def valid_mask(valid_wh, image_size, device) -> Optional[torch.Tensor]:
+    """(H, W) bool mask of a camera's native (w, h) inside the padded
+    ``image_size`` frame (JAX step.py:168-171), or None for no mask."""
+    if valid_wh is None:
+        return None
+    w, h = int(image_size[0]), int(image_size[1])
+    return ((torch.arange(w, device=device)[None, :] < int(valid_wh[0]))
+            & (torch.arange(h, device=device)[:, None] < int(valid_wh[1])))
+
+
+def apply_app_update(state: TrainState, g_app: Mapping,
+                     ocfg: OptimConfig) -> TrainState:
+    """The appearance Adam on gradients ``g_app`` ({"embeddings", "net"}),
+    the half of a step that ``train_step_impl(defer_app=True)`` leaves to
+    its caller (JAX's ``app_grad_reduce`` point, step.py:229-231)."""
+    with torch.no_grad():
+        optim.adam_step(app_groups(state.app), g_app, state.opt_a,
+                        appearance_lrs(ocfg))
+    return state
 
 
 def train_step_impl(
@@ -145,17 +169,31 @@ def train_step_impl(
     image_size,
     sh_degree: int,
     use_appearance: bool,
+    valid_wh=None,
+    defer_app: bool = False,
+    render=None,
 ) -> Tuple[TrainState, Dict[str, Any]]:
     """One step (train.py:94-157), updating ``state`` in place. Returns the
     state and the JAX package's metrics keys; the values stay on the card
-    (``n_pairs`` and ``n_dropped`` are host ints). The JAX package's
-    ``valid_wh`` pad-and-mask (its fleet's mixed resolutions) is not
-    ported: every view trains at its own size."""
+    (``n_pairs`` and ``n_dropped`` are host ints).
+
+    ``valid_wh`` (the camera's native (w, h), host ints) is the JAX
+    package's pad-and-mask for mixed resolutions: ``image_size`` is the
+    padded frame, ``gt`` is zero-padded into it, L1 and SSIM run over the
+    native pixels only, and the render, the probe's NDC scaling and the
+    appearance net see the whole frame, as in JAX. ``defer_app`` skips
+    the appearance Adam and returns its gradients as ``metrics["g_app"]``
+    for the caller to reduce and apply (``apply_app_update``): the
+    fleet's shared appearance. ``render`` (default ``render_gaussians``,
+    same signature) is the rasterizer: the intra-block path passes its
+    Gaussian-sharded one, and the rest of the step then runs on this
+    rank's shard of the slots."""
     w, h = int(image_size[0]), int(image_size[1])
     dev = state.alive.device
     if gt.dtype == torch.uint8:
         gt = gt.to(torch.float32) / 255.0
     app = state.app if use_appearance else None
+    mask = valid_mask(valid_wh, (w, h), dev)
 
     leaves = {k: v.detach().requires_grad_(True)
               for k, v in state.params.items()}
@@ -165,11 +203,11 @@ def train_step_impl(
         app_leaves = {"embeddings": app["embeddings"].detach()
                       .requires_grad_(True)}
         app = {"embeddings": app_leaves["embeddings"], "net": app["net"]}
-    image, aux = render_gaussians(
+    image, aux = (render or render_gaussians)(
         leaves, state.alive, viewmat, intrin, (w, h), background, sh_degree,
         max_per_tile=ocfg.tile_clamp(), means2d_offset=probe, device=dev)
     with record_function("appearance + loss"):
-        loss = photometric_loss(image, gt, app, view_idx, ocfg)
+        loss = photometric_loss(image, gt, app, view_idx, ocfg, mask)
     net_params = list(app["net"].parameters()) if app is not None else []
     inputs = [*leaves.values(), probe, *app_leaves.values(), *net_params]
     grads = torch.autograd.grad(loss, inputs, allow_unused=True)
@@ -200,10 +238,11 @@ def train_step_impl(
                    for k, g in g_gauss.items()}
         optim.adam_step(state.params, g_gauss, state.opt_g,
                         gaussian_lrs(ocfg, extent))
+        g_app = None
         if app is not None:
             g_app = {"embeddings": grads[n_g + 1], "net": grads[n_g + 2:]}
-            optim.adam_step(app_groups(state.app), g_app, state.opt_a,
-                            appearance_lrs(ocfg))
+            if not defer_app:
+                apply_app_update(state, g_app, ocfg)
 
     metrics = {
         "loss": loss.detach(),
@@ -214,6 +253,8 @@ def train_step_impl(
         "max_tile_load": aux["max_tile_load"],
         "tile_saturated": aux["max_tile_load"] > ocfg.tile_clamp(),
     }
+    if defer_app:
+        metrics["g_app"] = g_app
     return state, metrics
 
 

@@ -596,3 +596,49 @@ def test_pipeline_on_the_card(card, tmp_path, monkeypatch):
     res = metrics.main(["-m", str(model)])
     (mean,) = [r["mean"] for r in res.values()]
     assert np.isfinite(mean["PSNR"]) and np.isfinite(mean["SSIM"])
+
+
+def test_fleet_and_intra_block_on_the_card(card, tmp_path, monkeypatch):
+    """auto_train's fleet (banked cameras, shared appearance) and
+    ``--intra_block 1`` (one NCCL rank) on a tiny partitioned scene on the
+    card: block 0 of the fleet without sharing and the intra-block run
+    write the sequential block 0's bytes; the shared fleet trains every
+    block through the backward kernels."""
+    import json
+    import os
+    import shutil
+
+    from pcp_tpu_torch.cli import auto_train, partition
+
+    monkeypatch.setenv("PCP_TENSORBOARD", "0")
+    scene = tmp_path / "scene"
+    _tiny_colmap_scene(scene, 18)
+    partition.main([str(scene), "--threshold", "80", "--expansion_distance",
+                    "10", "--visible_rate", "0.05", "--no_plots",
+                    "--llffhold", "2"])
+    visible = scene / "model" / "split_result" / "visible"
+    blocks = sorted(d for d in os.listdir(visible) if (visible / d).is_dir())
+    flags = ["--iterations", "10", "--capacity", "1024", "--resolution",
+             "1", "--densify_from_iter", "3", "--densification_interval",
+             "5"]
+
+    def run(name, extra, only=None):
+        base = tmp_path / name
+        shutil.copytree(visible, base, ignore=shutil.ignore_patterns(
+            "train_status.json*", *(b for b in blocks if only and b not in
+                                    only)))
+        auto_train.main(["--base_path", str(base), *extra, *flags])
+        manifest = json.loads((base / "train_status.json").read_text())
+        assert all(v["status"] == "done" for v in manifest.values())
+        return {b: (base / b / f"partition_{b}" / "output" / "point_cloud" /
+                    "iteration_10" / f"{b}_point_cloud.ply").read_bytes()
+                for b in manifest}
+
+    seq = run("seq", ["--sequential"], blocks[:1])
+    composite.LAUNCHES.clear()
+    shared = run("shared", ["--share_appearance", "--device_data"])
+    assert sorted(shared) == blocks
+    assert composite.LAUNCHES["composite_bwd"] == 10 * len(blocks)
+    assert composite.LAUNCHES["sorted_segment_sum"] == 10 * len(blocks)
+    assert run("fleet", [], blocks[:1])[blocks[0]] == seq[blocks[0]]
+    assert run("intra", ["--intra_block", "1"], blocks[:1]) == seq

@@ -7,8 +7,9 @@
     with ``--device cpu`` and that test's flags marks every block done,
     writes the merged PLY and two rendered views, and scores them above
     the JAX test's own thresholds (PSNR > 14, SSIM > 0.3);
-(c) auto_train's multi-GPU modes exit naming ROADMAP A5 instead of training
-    another way.
+(c) auto_train's other modes (the fleet, ``--intra_block 2`` over two gloo
+    ranks, ``--distributed`` without torchrun's environment) train every
+    block of the partitioned scene on the CPU and write its PLY.
 
 Also the two small host CLIs: ``convert``'s COLMAP commands and its exit
 when the binary is missing, and ``light``'s low-light lists, against JAX's.
@@ -137,12 +138,32 @@ def test_pipeline_on_the_cpu(pipeline_dir, tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [[], ["--sequential", "--intra_block", "2"],
                                    ["--sequential", "--distributed"]])
-def test_auto_train_multi_gpu_modes_exit(tmp_path, flags):
-    from pcp_tpu_torch.cli import auto_train
+def test_auto_train_multi_gpu_modes_train(pipeline_dir, tmp_path, flags,
+                                          monkeypatch):
+    from pcp_tpu_torch.cli import auto_train, partition
+    from pcp_tpu_torch.parallel import distributed as pdist
+    from pcp_tpu_torch.parallel.distributed import TORCHRUN_ENV
 
-    with pytest.raises(SystemExit, match="ROADMAP A5"):
-        auto_train.main(["--base_path", str(tmp_path), "--device", "cpu",
-                         *flags])
+    monkeypatch.setattr(pdist, "JOIN_TIMEOUT_S", 120)
+    monkeypatch.setenv("PCP_TENSORBOARD", "0")   # the spawned ranks' logs
+    for k in TORCHRUN_ENV:
+        monkeypatch.delenv(k, raising=False)
+    scene = tmp_path / "scene"
+    shutil.copytree(pipeline_dir, scene)
+    partition.main([str(scene), *PARTITION_FLAGS, "--device", "cpu"])
+    visible = scene / "model" / "split_result" / "visible"
+    blocks = sorted(os.listdir(visible))
+    auto_train.main(["--base_path", str(visible), *flags, "--iterations",
+                     "4", "--capacity", "512", "--max_per_tile", "128",
+                     "--densify_from_iter", "2", "--densification_interval",
+                     "2", "--resolution", "1", "--device", "cpu"])
+    manifest = json.loads((visible / "train_status.json").read_text())
+    assert sorted(manifest) == blocks and len(blocks) >= 2
+    assert all(v["status"] == "done" for v in manifest.values()), manifest
+    for b in blocks:
+        out = visible / b / f"partition_{b}" / "output"
+        assert (out / "point_cloud" / "iteration_4" /
+                f"{b}_point_cloud.ply").exists()
 
 
 def test_new_clis_default_to_the_card(tmp_path):
