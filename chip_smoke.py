@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's render, training, eval, pipeline,
-multi-card and gather-experiment paths on one CUDA card and hold every
-kernel on them against its plain PyTorch version.
+multi-card, viewer and gather-experiment paths on one CUDA card and hold
+every kernel on them against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -75,15 +75,27 @@ there, needs no install step and nothing from the network. Phases:
     MIXED_TOL; then the warm fleet iteration beside 4 of phase 15's warm
     steps, and the intra-block step at D = 1 beside the single-card step,
     each with its device busy time;
-17. the gather experiment (``pcp_tpu_torch.tools.exp_r2 gather``) at its
+17. the viewer, on phase 8's scene at full width: (a) phase 8's
+    ``cli.train`` again with ``--ip 127.0.0.1 --port <free>`` and a viewer
+    client (connected before the loop) that asks for VIEWER_FRAMES frames
+    of the test views, at 1280x800 and at 1920x1080 with scaling_modifier
+    0.5, with VIEWER_PAUSED paused frames half way: every reply holds
+    w*h*3 bytes and the verify string, no step is taken across the pause,
+    B1 launches once per step, eval view and frame, and the PLY is phase
+    8's byte for byte; (b) ``poll_viewer`` on the 720k PLY at both sizes:
+    B1's image against the plain version, the bytes sent against its
+    uint8 cast, and the 1280x800 frame against ``render_view``; (c) the
+    median frame time at both sizes split into render, cast, copy to the
+    host and send, with B1's share;
+18. the gather experiment (``pcp_tpu_torch.tools.exp_r2 gather``) at its
     default shapes and at N = 2^20, each of its three forms held bit for
     bit to the plain version, with the byte bound and the plane form's
     sector floor; ``sort`` and ``xlagather`` once;
-18. one ``{"kernels": [...]}`` line, the card's name and power limit, and
+19. one ``{"kernels": [...]}`` line, the card's name and power limit, and
     the ``{"ok": true, ...}`` line last.
 
-Paths 4, 8, 12, 14, 15, 16a, 16e and 17 each run with every launch count
-set to 0 just before and read just after.
+Paths 4, 8, 12, 14, 15, 16a, 16e, 17a and 18 each run with every launch
+count set to 0 just before and read just after.
 
 Any failed check raises: the script then exits non-zero and prints no
 result line. Without a CUDA card it exits 1 before doing anything.
@@ -108,11 +120,14 @@ import re
 import shutil
 import socket
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
+from types import SimpleNamespace
 from unittest import mock
 
 import numpy as np
@@ -140,15 +155,17 @@ from pcp_tpu_torch.ops.projection import TILE, preprocess
 from pcp_tpu_torch.ops.rasterize import rasterize, untile
 from pcp_tpu_torch.scene import cameras as cam_mod
 from pcp_tpu_torch.scene import load_colmap_scene, split_train_test
+from pcp_tpu_torch.train import loop as loop_mod
 from pcp_tpu_torch.train import optim
 from pcp_tpu_torch.train.config import OptimConfig
 from pcp_tpu_torch.tools import exp_r2
 from pcp_tpu_torch.tools.blend_inputs import blend_inputs, real_block_counts
 from pcp_tpu_torch.train.step import TrainState, app_groups, train_step_impl
-from pcp_tpu_torch.utils.graphics import rotmat_to_qvec
+from pcp_tpu_torch.utils.graphics import rotmat_to_qvec, world_to_view
 from pcp_tpu_torch.utils.image import color_correct
 from pcp_tpu_torch.utils.loss import ssim
 from pcp_tpu_torch.utils.sh import rgb_to_sh
+from pcp_tpu_torch.viewer import NetworkGUI
 
 ROOT = Path(__file__).resolve().parent
 SCRATCH = ROOT / "_smoke"          # scene files; listed in .gitignore
@@ -190,6 +207,15 @@ PIPE_ITERS, PIPE_CKPT = 20, 10
 # and on the card; their losses agree to MIXED_TOL relative
 MIXED_GAUSSIANS, MIXED_RES, MIXED_CAPACITY = 4_000, 4, 1 << 13
 MIXED_STEPS, MIXED_TOL = 3, 1e-4
+# The viewer: phase 8's training with a viewer that asks for VIEWER_FRAMES
+# frames of the test views, every other one at the cameras' 1280x800 and
+# the rest at VIEWER_WIDE (a common window; 1080 rows are 67.5 tile rows,
+# so B1 gets a partial tile row) with scaling_modifier VIEWER_SCALE, and
+# VIEWER_PAUSED paused frames half way; then VIEWER_REPS timed frames at
+# each size. Every client socket operation times out after VIEWER_WAIT_S.
+VIEWER_WIDE, VIEWER_SCALE = (1920, 1080), 0.5
+VIEWER_FRAMES, VIEWER_PAUSED, VIEWER_REPS = 16, 3, 10
+VIEWER_WAIT_S = 300.0
 
 # Every kernel of the paths. ``replaces`` is the TPU kernel's pallas_call.
 KERNELS = [
@@ -239,6 +265,13 @@ def log(msg: str) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that nothing listens on just now."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def counts() -> dict:
@@ -759,11 +792,9 @@ def cpu_vs_cuda(params, alive, cam, n_small: int) -> None:
 # --------------------------------------------------------------------------
 
 
-def train_path(scene: Path, out: Path) -> dict:
-    """``cli.train`` on the card for TRAIN_ITERS steps, metrics logged at
-    every step; checks the losses, the densify, the opacity reset, the PLY
-    and the launch counts."""
-    argv = ["-s", str(scene), "-m", str(out), "--device", "cuda",
+def train_argv(scene: Path, out: Path) -> list:
+    """Phase 8's ``cli.train`` flags (phase 17 adds the viewer's)."""
+    return ["-s", str(scene), "-m", str(out), "--device", "cuda",
             "--eval", "--llffhold", str(LLFFHOLD),
             "--iterations", str(TRAIN_ITERS),
             "--densify_from_iter", str(DENSIFY_FROM),
@@ -772,9 +803,15 @@ def train_path(scene: Path, out: Path) -> dict:
             "--save_iterations", str(TRAIN_ITERS),
             "--test_iterations", str(TRAIN_ITERS),
             "--log_interval", "1", "--quiet"]
+
+
+def train_path(scene: Path, out: Path) -> dict:
+    """``cli.train`` on the card for TRAIN_ITERS steps, metrics logged at
+    every step; checks the losses, the densify, the opacity reset, the PLY
+    and the launch counts."""
     composite.LAUNCHES.clear()
     t0 = time.perf_counter()
-    state = train_cli.main(argv)
+    state = train_cli.main(train_argv(scene, out))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counts()
@@ -1866,9 +1903,7 @@ def multi_path(root: Path, pipe: dict, dev, smi: str) -> dict:
 
     # (c) (b) as one NCCL rank under torchrun
     c_dir = _blocks_copy(visible, root / "c")
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    port = free_port()
     t0 = time.perf_counter()
     run = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
@@ -1986,7 +2021,299 @@ def multi_path(root: Path, pipe: dict, dev, smi: str) -> dict:
 
 
 # --------------------------------------------------------------------------
-# 17. the gather experiment
+# 17. the viewer
+# --------------------------------------------------------------------------
+
+
+def viewer_message(info, size, scaling: float = 1.0) -> dict:
+    """The SIBR viewer's message for test camera ``info`` at ``size``,
+    built so that ``NetworkGUI.receive`` recovers the camera's viewmat (it
+    undoes the Y/Z flips) and, at the camera's own size, the fx and fy that
+    ``scene.cameras.from_info`` computes; at another size fov_y keeps
+    square pixels."""
+    w, h = size
+    wvt = world_to_view(info.R, info.t).astype(np.float32).T.copy()
+    wvt[:, 1:3] = -wvt[:, 1:3]
+    fovy = info.fovy if size == (info.width, info.height) else \
+        2.0 * math.atan(math.tan(info.fovx * 0.5) * h / w)
+    return {"resolution_x": w, "resolution_y": h, "fov_x": info.fovx,
+            "fov_y": fovy, "z_near": 0.01, "z_far": 100.0,
+            "view_matrix": [float(v) for v in wvt.flatten()],
+            "view_projection_matrix": [float(v)
+                                       for v in np.eye(4).flatten()],
+            "train": True, "keep_alive": True, "scaling_modifier": scaling}
+
+
+def _recv_exact(sock, n: int) -> bytes:
+    buf = bytearray()
+    while len(buf) < n:
+        b = sock.recv(min(n - len(buf), 1 << 20))
+        if not b:
+            raise ConnectionError("the viewer socket closed")
+        buf += b
+    return bytes(buf)
+
+
+class ViewerClient(threading.Thread):
+    """A viewer on 127.0.0.1:``port``: connects (retrying until the
+    listener is up), sends each message and reads its reply, then closes.
+    Every socket operation times out after VIEWER_WAIT_S. ``replies`` holds
+    (frame bytes, verify string) per message; ``join_checked`` raises what
+    went wrong."""
+
+    def __init__(self, port: int, msgs: list):
+        super().__init__(daemon=True)
+        self.port, self.msgs = port, msgs
+        self.connected = threading.Event()
+        self.replies, self.error = [], None
+
+    def run(self):
+        try:
+            deadline = time.monotonic() + VIEWER_WAIT_S
+            while True:
+                try:
+                    sock = socket.create_connection(
+                        ("127.0.0.1", self.port), timeout=VIEWER_WAIT_S)
+                    break
+                except ConnectionRefusedError:
+                    if time.monotonic() > deadline:
+                        raise
+                    time.sleep(0.05)
+            with sock:
+                self.connected.set()
+                for m in self.msgs:
+                    blob = json.dumps(m).encode()
+                    sock.sendall(struct.pack("<I", len(blob)) + blob)
+                    frame = _recv_exact(
+                        sock, m["resolution_x"] * m["resolution_y"] * 3)
+                    (n,) = struct.unpack("<I", _recv_exact(sock, 4))
+                    self.replies.append(
+                        (frame, _recv_exact(sock, n).decode("ascii")))
+        except Exception as e:  # noqa: BLE001 -- raised by join_checked
+            self.error = e
+            self.connected.set()
+
+    def wait_connected(self) -> None:
+        check(self.connected.wait(VIEWER_WAIT_S) and self.error is None,
+              f"the viewer connected ({self.error!r})")
+
+    def join_checked(self) -> None:
+        self.join(VIEWER_WAIT_S)
+        check(not self.is_alive(), "the viewer client finished")
+        if self.error is not None:
+            raise RuntimeError(f"viewer client: {self.error!r}") \
+                from self.error
+        check(len(self.replies) == len(self.msgs), "one reply per message")
+        for (frame, verify), m in zip(self.replies, self.msgs):
+            check(len(frame) == m["resolution_x"] * m["resolution_y"] * 3
+                  and verify == loop_mod.VIEWER_VERIFY,
+                  f"a {m['resolution_x']}x{m['resolution_y']} reply holds "
+                  f"w*h*3 bytes and {loop_mod.VIEWER_VERIFY!r}")
+
+
+def _accepted_gui(msgs: list):
+    """(NetworkGUI on an ephemeral port, its ViewerClient for ``msgs``),
+    the client accepted and the connection's reads bounded by
+    VIEWER_WAIT_S."""
+    gui = NetworkGUI("127.0.0.1", 0)
+    client = ViewerClient(gui.listener.getsockname()[1], msgs)
+    client.start()
+    client.wait_connected()
+    check(gui.try_connect(), "the viewer was accepted")
+    gui.conn.settimeout(VIEWER_WAIT_S)
+    return gui, client
+
+
+def viewer_live(scene: Path, out: Path, phase8_ply: Path, test) -> dict:
+    """(a) Phase 8's ``cli.train`` with ``--ip 127.0.0.1 --port <free>``
+    and a viewer that connects before the loop starts (the first poll
+    accepts it), asks for VIEWER_FRAMES frames with VIEWER_PAUSED paused
+    ones half way, and closes. Counts set to 0 just before, read just
+    after."""
+    half = VIEWER_FRAMES // 2
+    cams = [test[i % len(test)] for i in range(VIEWER_FRAMES)]
+    msgs = [viewer_message(c, (c.width, c.height)) if i % 2 == 0 else
+            viewer_message(c, VIEWER_WIDE, VIEWER_SCALE)
+            for i, c in enumerate(cams)]
+    msgs[half:half] = [dict(m, train=False)
+                       for m in msgs[half:half + VIEWER_PAUSED]]
+    port = free_port()
+    client = ViewerClient(port, msgs)
+    steps, polls = [], []
+    real_step, real_poll = loop_mod.train_step_impl, loop_mod.poll_viewer
+    real_train = loop_mod.train_scene
+
+    def step(*a, **kw):
+        steps.append(1)
+        return real_step(*a, **kw)
+
+    def poll(*a, **kw):
+        ret = real_poll(*a, **kw)
+        polls.append((len(steps), ret))
+        return ret
+
+    def train(*a, **kw):
+        client.start()
+        client.wait_connected()
+        return real_train(*a, **kw)
+
+    composite.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with mock.patch.object(loop_mod, "train_step_impl", step), \
+            mock.patch.object(loop_mod, "poll_viewer", poll), \
+            mock.patch.object(loop_mod, "train_scene", train):
+        train_cli.main(train_argv(scene, out)
+                       + ["--ip", "127.0.0.1", "--port", str(port)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    client.join_checked()
+    check(len(steps) == TRAIN_ITERS, f"{TRAIN_ITERS} steps")
+    first = [ret for _, ret in polls].index(True)
+    check(polls[first:first + VIEWER_PAUSED + 1]
+          == [(half, True)] * VIEWER_PAUSED + [(half, False)]
+          and sum(ret for _, ret in polls) == VIEWER_PAUSED,
+          f"no step across the paused frames: polls {polls}")
+    check(launches == {"composite_fwd": TRAIN_ITERS + TEST_VIEWS + len(msgs),
+                       "composite_bwd": TRAIN_ITERS,
+                       "sorted_segment_sum": TRAIN_ITERS, "gather_pack": 0},
+          f"B1 once per step, eval view and frame: {launches}")
+    ply = out / "point_cloud" / f"iteration_{TRAIN_ITERS}" / "point_cloud.ply"
+    check(ply.read_bytes() == phase8_ply.read_bytes(),
+          "the viewer changed no bit of training: phase 8's PLY bytes")
+    return {"launches": launches, "frames": len(msgs), "wall_s": wall,
+            "polls": len(polls), "paused_at_step": half}
+
+
+def viewer_frames(state, info, dev) -> dict:
+    """(b) poll_viewer on the 720k PLY state for test camera ``info`` at
+    its 1280x800 and at VIEWER_WIDE: B1's float image against the plain
+    version, the received bytes against the image's uint8 cast, and the
+    1280x800 frame against the CLI's ``render_view`` of the camera."""
+    ocfg, bg = OptimConfig(), torch.zeros(3, device=dev)
+    msgs = [viewer_message(info, (info.width, info.height)),
+            viewer_message(info, VIEWER_WIDE, VIEWER_SCALE)]
+    seen = []
+    real_image = loop_mod.viewer_image
+
+    def spy(st, cam, *a):
+        image = real_image(st, cam, *a)
+        seen.append((cam, image))
+        return image
+
+    gui, client = _accepted_gui(msgs)
+    try:
+        with mock.patch.object(loop_mod, "viewer_image", spy):
+            for _ in msgs:
+                check(loop_mod.poll_viewer(gui, state, SH_DEGREE, bg, ocfg,
+                                           False) is False,
+                      "a training viewer's poll returns False")
+        client.join_checked()
+    finally:
+        gui.close()
+    out = {}
+    for (cam, image), (frame, _) in zip(seen, client.replies):
+        size = f"{cam.width}x{cam.height}"
+        check(frame == loop_mod.to_frame(image).cpu().numpy().tobytes(),
+              f"{size}: the bytes sent are the kernel image's uint8 cast")
+        with mock.patch.object(rasterize_mod, "composite_fwd",
+                               composite.composite_fwd_plain):
+            plain = real_image(state, cam, SH_DEGREE, bg, ocfg)
+        err = float((image - plain).abs().max())
+        check(err <= KERNEL_ATOL, f"{size}: B1's frame vs plain {err:.3e}")
+        out[size] = {"max_abs_err": err}
+    view, _ = render_view(state.params, state.alive,
+                          cam_mod.from_info(info, -1, load_image=False),
+                          SH_DEGREE, bg, max_per_tile=ocfg.max_per_tile,
+                          device=dev)
+    check((view * 255).astype(np.uint8).tobytes() == client.replies[0][0],
+          "the 1280x800 frame is render_view's, cast the same way")
+    return out
+
+
+def viewer_times(state, test, dev) -> dict:
+    """(c) Median ms per frame over VIEWER_REPS frames at each size, split
+    into render, cast, device-to-host copy and send (each synchronised),
+    and B1 alone (``cuda_ms``) on the last frame's inputs."""
+    ocfg, bg = OptimConfig(), torch.zeros(3, device=dev)
+    out = {}
+    for size, scaling in (((W, H), 1.0), (VIEWER_WIDE, VIEWER_SCALE)):
+        msgs = [viewer_message(test[i % len(test)], size, scaling)
+                for i in range(VIEWER_REPS)]
+        parts = {k: [] for k in ("render", "cast", "to_host", "send",
+                                 "frame")}
+        gui, client = _accepted_gui(msgs)
+        try:
+            for _ in msgs:
+                cam = gui.receive()
+                check(cam is not None, "a timed viewer message")
+                t = [time.perf_counter()]
+                image = loop_mod.viewer_image(state, cam, SH_DEGREE, bg,
+                                              ocfg)
+                torch.cuda.synchronize()
+                t.append(time.perf_counter())
+                frame = loop_mod.to_frame(image)
+                torch.cuda.synchronize()
+                t.append(time.perf_counter())
+                host = frame.cpu().numpy()
+                t.append(time.perf_counter())
+                gui.send(host, loop_mod.VIEWER_VERIFY)
+                t.append(time.perf_counter())
+                for k, a, b in (("render", 0, 1), ("cast", 1, 2),
+                                ("to_host", 2, 3), ("send", 3, 4),
+                                ("frame", 0, 4)):
+                    parts[k].append((t[b] - t[a]) * 1e3)
+            client.join_checked()
+        finally:
+            gui.close()
+        args = []
+
+        def capture(*a):
+            args[:] = a
+            return composite.composite_fwd(*a)
+
+        with mock.patch.object(rasterize_mod, "composite_fwd", capture):
+            loop_mod.viewer_image(state, cam, SH_DEGREE, bg, ocfg)
+        b1_ms = cuda_ms(lambda: composite.composite_fwd(*args), reps=20)
+        med = {k: statistics.median(v) for k, v in parts.items()}
+        out[f"{size[0]}x{size[1]}"] = dict(
+            med, b1_ms=b1_ms, b1_share=b1_ms / med["frame"],
+            scaling_modifier=scaling, frames=len(msgs))
+    return out
+
+
+def viewer_path(scene: Path, out: Path, phase8_ply: Path, params, alive,
+                dev, smi: str) -> dict:
+    """The viewer phase: (a) live training with a viewer, (b) frames
+    against the plain version, (c) frame times."""
+    t_phase = time.perf_counter()
+    test = split_train_test(load_colmap_scene(str(scene)).cameras, True,
+                            LLFFHOLD)[1]
+    live = viewer_live(scene, out, phase8_ply, test)
+    state = SimpleNamespace(params=params, alive=alive)
+    frames = viewer_frames(state, test[0], dev)
+    times = viewer_times(state, test, dev)
+    res = dict(live, frames_vs_plain=frames, times=times,
+               phase_s=time.perf_counter() - t_phase, card=smi)
+    log(f"viewer: cli train with a viewer, {TRAIN_ITERS} steps and "
+        f"{live['frames']} frames ({VIEWER_PAUSED} paused at step "
+        f"{live['paused_at_step']}) in {live['wall_s']:.1f} s, launches "
+        f"{live['launches']}, PLY == phase 8's; frames vs plain "
+        + ", ".join(f"{k} {v['max_abs_err']:.3e}" for k, v in frames.items())
+        + f"; bytes == the kernel frame; {W}x{H} == render_view")
+    log(f"viewer frames [{smi}]: median ms per frame "
+        + "; ".join(f"{k} (scaling {v['scaling_modifier']}): frame "
+                    f"{v['frame']:.3f} = render {v['render']:.3f} + cast "
+                    f"{v['cast']:.3f} + to host {v['to_host']:.3f} + send "
+                    f"{v['send']:.3f}; B1 {v['b1_ms']:.4f} "
+                    f"({v['b1_share']:.1%} of the frame)"
+                    for k, v in times.items())
+        + f"; the phase {res['phase_s']:.1f} s")
+    return res
+
+
+# --------------------------------------------------------------------------
+# 18. the gather experiment
 # --------------------------------------------------------------------------
 
 
@@ -2137,6 +2464,10 @@ def main(argv=None) -> int:
                              weights, smi)
         multi = multi_path(Path(tmp) / "multi", pipe, dev, smi)
         del pipe["visible"], pipe["block0_ply"]
+        viewer = viewer_path(
+            scene, Path(tmp) / "viewer", Path(tmp) / "train" / "point_cloud"
+            / f"iteration_{TRAIN_ITERS}" / "point_cloud.ply", params, alive,
+            dev, smi)
 
         gather = gather_path()
         measured["gather_pack"] = gather_checks(gather["runs"], dev)
@@ -2147,13 +2478,13 @@ def main(argv=None) -> int:
              "metrics": ev["launches"], "full_eval": fe["launches"],
              "pipeline": pipe["launches"], "fleet": multi["launches"],
              "intra_block": multi["intra_block_launches"],
-             "exp_r2": gather["launches"]}
+             "viewer": viewer["launches"], "exp_r2": gather["launches"]}
     main_path_of = {"composite_fwd": "train", "composite_bwd": "train",
                     "sorted_segment_sum": "train", "gather_pack": "exp_r2"}
     print(json.dumps({"render": dict(render, views=run["views"]),
                       "train": dict(train, step=step, small=small),
                       "eval": ev, "full_eval": fe, "pipeline": pipe,
-                      "multi": multi,
+                      "multi": multi, "viewer": viewer,
                       "exp_r2": dict(other, gather_by_layout=gather[
                           "by_layout"])}))
     print(json.dumps({"kernels": [

@@ -8,8 +8,10 @@ cfg_args.json and train_log.jsonl; ``--checkpoint_iterations`` writes
 <out>/chkpnt<N>.pth, which ``--start_checkpoint`` resumes from (JAX's resume:
 the camera shuffle and the densify draws restart from ``--seed``).
 ``--debug`` dumps a non-finite step's inputs and stops; ``--profile`` writes
-a ``torch.profiler`` trace under <out>/trace. ``main`` returns the final
-``TrainState``.
+a ``torch.profiler`` trace under <out>/trace. The SIBR viewer socket listens
+on ``--ip``:``--port`` (127.0.0.1:6009; ``--ip none`` or
+``--disable_viewer`` turns it off); where it cannot bind, training runs
+headless, as in JAX. ``main`` returns the final ``TrainState``.
 """
 
 from __future__ import annotations
@@ -42,6 +44,10 @@ def main(argv=None):
                    help="read and log the step's metrics every N iterations")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--ip", type=str, default="127.0.0.1",
+                   help="viewer socket host (train.py:252); 'none' disables")
+    p.add_argument("--port", type=int, default=6009)
+    p.add_argument("--disable_viewer", action="store_true")
     p.add_argument("--profile", action="store_true",
                    help="write a torch.profiler trace under the model dir")
     args = p.parse_args(argv)
@@ -52,6 +58,7 @@ def main(argv=None):
     from pcp_tpu_torch.scene import load_scene
     from pcp_tpu_torch.train import checkpoint as ckpt
     from pcp_tpu_torch.train.loop import init_state, train_scene
+    from pcp_tpu_torch.utils.general import safe_state
 
     device = resolve_device(args.device)
     cfg = config_from_args(args)
@@ -60,6 +67,7 @@ def main(argv=None):
     cfg.checkpoint_iterations = args.checkpoint_iterations
     cfg.start_checkpoint = args.start_checkpoint
     cfg.seed = args.seed
+    safe_state(args.seed)
     scene = load_scene(cfg.model.source_path, images_dir=cfg.model.images,
                        white_background=cfg.model.white_background,
                        eval_split=cfg.model.eval,
@@ -77,9 +85,23 @@ def main(argv=None):
         state, start_iter = ckpt.load(cfg.start_checkpoint, template)
         if log_fn:
             log_fn(f"resumed from {cfg.start_checkpoint} @ iter {start_iter}")
-    state = train_scene(scene, cfg, log_fn=log_fn, state=state,
-                        start_iter=start_iter, log_interval=args.log_interval,
-                        profile=args.profile, device=device)
+    viewer = None
+    if not args.disable_viewer and args.ip != "none":
+        from pcp_tpu_torch.viewer import NetworkGUI
+
+        try:
+            viewer = NetworkGUI(args.ip, args.port)
+        except OSError as e:
+            print(f"viewer socket unavailable ({e}); continuing headless")
+    try:
+        state = train_scene(scene, cfg, log_fn=log_fn, state=state,
+                            start_iter=start_iter,
+                            log_interval=args.log_interval,
+                            profile=args.profile, viewer=viewer,
+                            device=device)
+    finally:
+        if viewer is not None:
+            viewer.close()
     if log_fn:
         log_fn(f"training complete: {cfg.model.model_path}")
     return state

@@ -8,7 +8,8 @@ reset, both with the reference's strict bounds, the GT bank on the card as
 uint8, L1/PSNR on the held-out views at ``test_iterations``, PLY saves at
 ``save_iterations``, full checkpoints (``chkpnt<it>.pth``) at
 ``checkpoint_iterations``, a cooperative STOP file, the ``pipeline.debug``
-NaN dump and a ``torch.profiler`` trace.
+NaN dump, a ``torch.profiler`` trace and the viewer poll before each step
+(``poll_viewer``; train.py:67-84).
 
 Resume (``state`` and ``start_iter``) follows the JAX package: the loop runs
 iterations ``start_iter + 1 .. iterations``, and both the camera shuffle and
@@ -16,14 +17,15 @@ the densify generator restart from ``cfg.seed`` (JAX loop.py:221-224,
 434-435, 461-465), so a resumed run is JAX's resumed run, not the unbroken
 one.
 
-Not here (queued in ROADMAP.md): the JAX package's tile-table re-tuning
-(exact binning has nothing to re-tune) and the viewer.
+Not here (ROADMAP.md, "Not to port"): the JAX package's tile-table
+re-tuning; exact binning has nothing to re-tune.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import random
 import time
@@ -36,6 +38,7 @@ from pcp_tpu_torch.device import DeviceLike, resolve_device
 from pcp_tpu_torch.eval.render_batch import eval_views
 from pcp_tpu_torch.models import gaussians as G
 from pcp_tpu_torch.models.appearance import init_appearance
+from pcp_tpu_torch.ops.projection import CameraIntrin
 from pcp_tpu_torch.scene import cameras as cam_mod
 from pcp_tpu_torch.scene.dataset import SceneInfo, split_train_test
 from pcp_tpu_torch.train import checkpoint as ckpt
@@ -47,8 +50,12 @@ from pcp_tpu_torch.train.step import (
     app_groups,
     densify_impl,
     opacity_reset_impl,
+    render_gaussians,
     train_step_impl,
 )
+
+# What the viewer protocol expects after each frame (JAX loop.py:125).
+VIEWER_VERIFY = "pcp_tpu"
 
 
 def init_state(scene: SceneInfo, cfg: TrainRunConfig,
@@ -80,6 +87,59 @@ def evaluate_cameras(state: TrainState, cams, sh_degree: int, background,
         max_per_tile=ocfg.tile_clamp(), device=state.alive.device)
     return {"l1": float(np.mean(l1s)) if l1s else 0.0,
             "psnr": float(np.mean(psnrs)) if psnrs else 0.0}
+
+
+def viewer_image(state: TrainState, cam, sh_degree: int, background,
+                 ocfg) -> torch.Tensor:
+    """The (H, W, 3) f32 render of the live state from a viewer camera
+    (``viewer.ViewerCamera``) on the state's device, with no autograd
+    graph: fx = w / (2 tan(fovx / 2)) (fy likewise) in double, then fp32;
+    the principal point at the centre; viewmat = world_view_transform.T;
+    the camera's ``scaling_modifier`` scales the extents (JAX
+    loop.py:96-126). It reads the state and changes nothing in it."""
+    dev = state.alive.device
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    fx = cam.width / (2.0 * math.tan(cam.fovx * 0.5))
+    fy = cam.height / (2.0 * math.tan(cam.fovy * 0.5))
+    intrin = CameraIntrin(fx=f32(fx), fy=f32(fy), cx=f32(cam.width / 2.0),
+                          cy=f32(cam.height / 2.0))
+    viewmat = torch.as_tensor(
+        np.ascontiguousarray(cam.world_view_transform.T, np.float32),
+        device=dev)
+    with torch.no_grad():
+        image, _ = render_gaussians(
+            state.params, state.alive, viewmat, intrin,
+            (cam.width, cam.height), background, sh_degree,
+            max_per_tile=ocfg.tile_clamp(),
+            scaling_modifier=cam.scaling_modifier, device=dev)
+    return image
+
+
+def to_frame(image: torch.Tensor) -> torch.Tensor:
+    """(H, W, 3) uint8 on the image's device: clip to [0, 1], times 255 in
+    fp32, truncated as numpy's ``astype(np.uint8)`` truncates."""
+    return (torch.clamp(image, 0.0, 1.0) * 255.0).to(torch.uint8)
+
+
+def poll_viewer(viewer, state: TrainState, sh_degree: int, background,
+                ocfg, training_done: bool) -> bool:
+    """One viewer poll (train.py:67-84): accept a waiting viewer, read one
+    camera, render it, send the frame and VIEWER_VERIFY. Returns whether to
+    poll again before the next step: the viewer keeps the connection alive
+    and pauses training, and training is not done. The frame is cast on
+    the device and crosses to the host as uint8; a failed render raises
+    to the caller, only socket errors close the connection."""
+    if viewer is None or not viewer.try_connect():
+        return False
+    cam = viewer.receive()
+    if cam is None:
+        return False
+    frame = to_frame(viewer_image(state, cam, sh_degree, background, ocfg))
+    viewer.send(frame.cpu().numpy(), VIEWER_VERIFY)
+    return cam.keep_alive and not cam.do_training and not training_done
 
 
 def save_model(state: TrainState, model_path: str, iteration: int,
@@ -134,12 +194,15 @@ def train_scene(
     start_iter: int = 0,
     log_interval: int = 100,
     profile: bool = False,
+    viewer=None,
     device: DeviceLike = None,
 ) -> TrainState:
     """Train one scene/block on ``device`` (the card unless ``"cpu"``);
     writes its outputs under cfg.model.model_path. Metrics are read and
     logged at iteration 1 and every ``log_interval`` iterations. A given
-    ``state`` (a loaded checkpoint) resumes at ``start_iter + 1``."""
+    ``state`` (a loaded checkpoint) resumes at ``start_iter + 1``. A
+    ``viewer`` (``viewer.NetworkGUI``) is polled before each step, and
+    again while it pauses training (JAX loop.py:461-466)."""
     dev = resolve_device(device)
     model_path = cfg.model.model_path
     os.makedirs(model_path, exist_ok=True)
@@ -192,6 +255,11 @@ def train_scene(
     logger = TrainLogger(model_path)
     with contextlib.closing(logger), _profiler(profile, model_path, dev):
         for it in range(start_iter + 1, ocfg.iterations + 1):
+            if viewer is not None:
+                sh_now = min(cfg.model.sh_degree, (it - 1) // 1000)
+                while poll_viewer(viewer, state, sh_now, background, ocfg,
+                                  it >= ocfg.iterations):
+                    pass
             if not stack:
                 stack = list(range(len(cams)))
                 rng.shuffle(stack)

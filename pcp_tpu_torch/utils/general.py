@@ -1,11 +1,13 @@
-"""Schedule, quaternion and activation helpers (torch counterpart of
-``pcp_tpu/utils/general.py``; general_utils.py:18, :29-62, :78-97
-semantics)."""
+"""Schedule, quaternion, covariance and activation helpers and RNG seeding
+(torch counterpart of ``pcp_tpu/utils/general.py``; general_utils.py:18,
+:29-62, :78-110, :130-133 semantics)."""
 
 from __future__ import annotations
 
 import math
+import random
 
+import numpy as np
 import torch
 
 
@@ -58,3 +60,33 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     return R.reshape(q.shape[:-1] + (3, 3))
+
+
+def build_scaling_rotation(scales: torch.Tensor,
+                           quats: torch.Tensor) -> torch.Tensor:
+    """L = R @ diag(s) (..., 3, 3): the factor whose L L^T is the 3D
+    covariance (general_utils.py:100-110, gaussian_model.py:28-37)."""
+    return quat_to_rotmat(quats) * scales[..., None, :]
+
+
+def covariance_from_scaling_rotation(scales: torch.Tensor,
+                                     quats: torch.Tensor) -> torch.Tensor:
+    """The full 3x3 covariance L L^T (symmetric, positive semi-definite)."""
+    L = build_scaling_rotation(scales, quats)
+    return L @ L.transpose(-1, -2)
+
+
+def strip_symmetric(cov: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) symmetric -> (..., 6) upper triangle [xx, xy, xz, yy,
+    yz, zz] (gaussian_model.py:38-44 packing order)."""
+    return torch.stack([cov[..., 0, 0], cov[..., 0, 1], cov[..., 0, 2],
+                        cov[..., 1, 1], cov[..., 1, 2], cov[..., 2, 2]],
+                       dim=-1)
+
+
+def safe_state(seed: int = 0) -> None:
+    """Seed Python's and numpy's global generators, as the JAX package does
+    (general_utils.py:130-133). The port's torch randomness takes explicit
+    ``torch.Generator``s, so torch's global generator is left alone."""
+    random.seed(seed)
+    np.random.seed(seed)

@@ -1,4 +1,4 @@
-"""Training losses: L1 and windowed SSIM (counterpart of
+"""Training losses: L1, L2 and windowed SSIM (counterpart of
 ``pcp_tpu/utils/loss.py``; loss_utils.py:17-63 of the reference).
 
 The SSIM blur is the JAX package's 11-tap zero-padded shift-and-add in fp32
@@ -25,6 +25,10 @@ def l1_loss(pred, target, valid_mask=None):
     m = valid_mask.to(pred.dtype)[..., None]
     n = torch.clamp_min(m.sum() * pred.shape[-1], 1.0)
     return torch.sum(torch.abs(pred - target) * m) / n
+
+
+def l2_loss(pred, target):
+    return ((pred - target) ** 2).mean()
 
 
 @functools.lru_cache(maxsize=8)
@@ -87,3 +91,12 @@ def ssim(img1, img2, window_size: int = 11, sigma: float = 1.5,
         n = torch.clamp_min(m.sum() * ssim_map.shape[0], 1.0)
         return torch.sum(ssim_map * m) / n
     return ssim_map.mean()
+
+
+def photometric_loss(pred, raw_pred, target, lambda_dssim: float = 0.2):
+    """(1 - lambda) L1(pred, target) + lambda (1 - SSIM(raw_pred, target))
+    on (C, H, W) images: L1 on the appearance-decoupled image, SSIM on the
+    raw render (train.py:111-117); pass pred == raw_pred without the
+    decoupling. The step's own loss is ``train.step.photometric_loss``."""
+    return (1.0 - lambda_dssim) * l1_loss(pred, target) + lambda_dssim * (
+        1.0 - ssim(raw_pred, target))

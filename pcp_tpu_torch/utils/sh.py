@@ -35,6 +35,11 @@ def rgb_to_sh(rgb):
     return (rgb - 0.5) / C0
 
 
+def sh_to_rgb(sh):
+    """DC SH coefficient -> RGB (sh_utils.py:117)."""
+    return sh * C0 + 0.5
+
+
 def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     """sh (..., K, 3) with K >= (deg+1)**2, unit dirs (..., 3) -> (..., 3),
     before the +0.5 offset. Same term order as the JAX version."""

@@ -127,6 +127,77 @@ def test_rasterize_on_the_card_matches_the_cpu(card):
     assert abs(out["cuda"][2] - out["cpu"][2]) <= 1e-3 * out["cpu"][2]
 
 
+def test_poll_viewer_on_the_card_matches_the_cpu(card, monkeypatch):
+    # A viewer frame of a seeded 3000-Gaussian state at an off-grid 333x187
+    # (a partial tile row and column) with scaling_modifier 0.8, through
+    # poll_viewer on both devices: the uint8 frames within 1 level of 255
+    # but where CPU and CUDA libm flip a sample (as above: at most 0.1% of
+    # the values, each within 2 levels); on the card the float image
+    # against the plain composite to ATOL, and the frame is its cast.
+    from types import SimpleNamespace
+
+    from pcp_tpu_torch.ops import rasterize as rasterize_mod
+    from pcp_tpu_torch.train import loop
+    from pcp_tpu_torch.train.config import OptimConfig
+    from pcp_tpu_torch.viewer import ViewerCamera
+
+    rng = np.random.default_rng(6)
+    n, w, h = 3000, 333, 187
+    params = {
+        "xyz": np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n),
+                         rng.uniform(3, 9, n)], -1),
+        "f_dc": rng.normal(0, 0.5, (n, 3)),
+        "f_rest": rng.normal(0, 0.1, (n, 15, 3)),
+        "scaling": np.log(rng.uniform(0.02, 0.2, (n, 3))),
+        "rotation": rng.normal(size=(n, 4)),
+        "opacity": rng.normal(0, 1.5, (n, 1))}
+    alive = np.arange(n) < n - 100
+    wvt = np.eye(4, dtype=np.float32)
+    wvt[3, :3] = [0.2, -0.1, 0.5]         # viewmat = wvt.T: a translation
+    cam = ViewerCamera(w, h, 1.2, 0.75, 0.01, 100.0, wvt,
+                       np.eye(4, dtype=np.float32), True, True, 0.8, False,
+                       False)
+
+    class Viewer:
+        def try_connect(self):
+            return True
+
+        def receive(self):
+            return cam
+
+        def send(self, frame, verify):
+            self.sent = (frame, verify)
+
+    ocfg = OptimConfig()
+    frames, states = {}, {}
+    for dev in ("cpu", "cuda"):
+        states[dev] = SimpleNamespace(
+            params={k: torch.tensor(v, dtype=torch.float32, device=dev)
+                    for k, v in params.items()},
+            alive=torch.tensor(alive, device=dev))
+        viewer = Viewer()
+        before = composite.LAUNCHES["composite_fwd"]
+        assert loop.poll_viewer(viewer, states[dev], 3, torch.zeros(
+            3, device=dev), ocfg, False) is False
+        assert composite.LAUNCHES["composite_fwd"] == before + (
+            dev == "cuda")
+        frames[dev] = viewer.sent[0]
+        assert viewer.sent[1] == "pcp_tpu"
+        assert frames[dev].shape == (h, w, 3)
+    diff = np.abs(frames["cuda"].astype(np.int16) - frames["cpu"])
+    assert int(diff.max()) <= 2 and float((diff <= 1).mean()) >= 0.999
+    assert float(np.std(frames["cuda"])) > 5
+
+    bg = torch.zeros(3, device=card)
+    image = loop.viewer_image(states["cuda"], cam, 3, bg, ocfg)
+    np.testing.assert_array_equal(loop.to_frame(image).cpu().numpy(),
+                                  frames["cuda"])
+    monkeypatch.setattr(rasterize_mod, "composite_fwd",
+                        composite.composite_fwd_plain)
+    plain = loop.viewer_image(states["cuda"], cam, 3, bg, ocfg)
+    torch.testing.assert_close(image, plain, rtol=0, atol=ATOL)
+
+
 @pytest.mark.parametrize("seed,max_count", [(0, 40), (1, 700), (2, 1500)])
 def test_composite_bwd_matches_plain(card, seed, max_count):
     args = _bins(seed, 8, 5, max_count, card)

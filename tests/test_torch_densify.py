@@ -14,7 +14,9 @@ import pytest
 import torch
 
 from pcp_tpu.models import gaussians as jG
+from pcp_tpu.ops import knn as jknn
 from pcp_tpu.ops.knn import mean_sq_dist_3nn as j_knn
+from pcp_tpu_torch.ops import knn as tknn
 from pcp_tpu_torch.models import gaussians as tG
 from pcp_tpu_torch.ops.knn import mean_sq_dist_3nn as t_knn
 
@@ -34,6 +36,27 @@ def test_knn_matches_jax(n):
     j = np.asarray(j_knn(jnp.asarray(pts)))
     t = t_knn(torch.from_numpy(pts)).numpy()
     np.testing.assert_allclose(t, j, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("n,k,chunk", [(600, 5, 1 << 19), (600, 8, 128),
+                                     (5, 5, 1 << 19)],
+                         ids=["one_pass", "chunked", "n_le_k"])
+def test_kth_nn_dist2_matches_jax(n, k, chunk):
+    # The tensor form and its numpy twin against JAX's, the chunked large-N
+    # path with a small ``chunk``: the same candidates and squared
+    # distances, so 1e-5 relative; n <= k gives +inf everywhere.
+    pts = _cloud(n + k, n)
+    j = np.asarray(jknn.kth_nn_dist2(jnp.asarray(pts), k, chunk=chunk))
+    t = tknn.kth_nn_dist2(torch.from_numpy(pts), k, chunk=chunk).numpy()
+    np.testing.assert_allclose(t, j, rtol=1e-5, atol=0)
+    j_np = jknn.kth_nn_dist2_np(pts, k, chunk=chunk // 2 or 1)
+    t_np = tknn.kth_nn_dist2_np(pts, k, chunk=chunk // 2 or 1)
+    np.testing.assert_array_equal(t_np, j_np)
+    assert t.dtype == t_np.dtype == np.float32
+    if n <= k:
+        assert np.isinf(t).all() and np.isinf(t_np).all()
+    else:   # a point near an end of every ordering may see < k others
+        assert np.isfinite(t).mean() > 0.9
 
 
 def test_create_from_pcd_matches_jax():

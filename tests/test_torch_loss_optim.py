@@ -5,6 +5,8 @@ package's, on the same seeded numpy inputs.
   blur with the same 11-tap fp32 shift-and-add, so values agree to 1e-6
   and gradients to 1e-5 relative;
 - ``mse`` / ``psnr``: 1e-6 relative;
+- ``l2_loss``: 1e-6 relative; ``photometric_loss(pred, raw_pred,
+  target)``: 1e-6 absolute, the SSIM's own tolerance;
 - ``expon_lr``: both evaluate in fp32, 1e-6 relative;
 - ``adam_step`` with a schedule, ``zero_moments`` on a slot mask and on one
   group: parameters and moments to 1e-6 relative after four steps.
@@ -63,6 +65,22 @@ def test_loss_and_grads_match_jax(masked):
     assert _rel(x.grad.numpy(), j_grad) < 1e-5
     if masked:
         assert (x.grad.numpy()[~mask] == 0).all()
+
+
+@pytest.mark.parametrize("decoupled", [False, True])
+def test_l2_and_photometric_loss_match_jax(decoupled):
+    a, b, _ = _images(5)
+    pred = np.clip(a * 0.9 + 0.05, 0, 1) if decoupled else a
+    chw = lambda x: np.ascontiguousarray(x.transpose(2, 0, 1))  # noqa: E731
+    j_args = [jnp.asarray(chw(x)) for x in (pred, a, b)]
+    t_args = [torch.from_numpy(chw(x)) for x in (pred, a, b)]
+    for lam in (0.2, 0.5):
+        j = float(jloss.photometric_loss(*j_args, lambda_dssim=lam))
+        t = float(tloss.photometric_loss(*t_args, lambda_dssim=lam))
+        assert abs(t - j) <= 1e-6
+    j = float(jloss.l2_loss(jnp.asarray(a), jnp.asarray(b)))
+    t = float(tloss.l2_loss(torch.from_numpy(a), torch.from_numpy(b)))
+    assert abs(t - j) <= 1e-6 * j
 
 
 def test_ssim_components_match_jax():

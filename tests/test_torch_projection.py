@@ -1,8 +1,11 @@
-"""Port vs JAX package: spherical harmonics, quaternions and preprocess.
+"""Port vs JAX package: spherical harmonics, quaternions, covariances, RNG
+seeding and preprocess.
 
 Inputs come from numpy seeds and go through ``pcp_tpu`` (JAX on the CPU)
 and ``pcp_tpu_torch`` (torch on the CPU) unchanged.
 """
+
+import random
 
 import jax.numpy as jnp
 import numpy as np
@@ -41,6 +44,43 @@ def test_quat_to_rotmat_matches():
     np.testing.assert_allclose(
         tgen.inverse_sigmoid(torch.from_numpy(x)).numpy(),
         np.asarray(jgen.inverse_sigmoid(jnp.asarray(x))), rtol=1e-6)
+
+
+def test_sh_to_rgb_and_covariance_helpers_match():
+    # 1e-6: the same few fp32 products and sums; sh_to_rgb inverts
+    # rgb_to_sh to the same rounding in both packages.
+    rng = np.random.default_rng(2)
+    sh = rng.normal(size=(200, 3)).astype(np.float32)
+    np.testing.assert_allclose(
+        tsh.sh_to_rgb(torch.from_numpy(sh)).numpy(),
+        np.asarray(jsh.sh_to_rgb(jnp.asarray(sh))), rtol=0, atol=1e-6)
+    s = rng.uniform(0.01, 2.0, (200, 3)).astype(np.float32)
+    q = rng.normal(size=(200, 4)).astype(np.float32)
+    js, jq = jnp.asarray(s), jnp.asarray(q)
+    ts, tq = torch.from_numpy(s), torch.from_numpy(q)
+    L = tgen.build_scaling_rotation(ts, tq)
+    np.testing.assert_allclose(
+        L.numpy(), np.asarray(jgen.build_scaling_rotation(js, jq)),
+        rtol=0, atol=1e-6)
+    cov = tgen.covariance_from_scaling_rotation(ts, tq)
+    j_cov = np.asarray(jgen.covariance_from_scaling_rotation(js, jq))
+    np.testing.assert_allclose(cov.numpy(), j_cov, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(
+        tgen.strip_symmetric(cov).numpy(),
+        np.asarray(jgen.strip_symmetric(jnp.asarray(j_cov))),
+        rtol=1e-5, atol=1e-6)
+    assert tgen.strip_symmetric(cov).shape == (200, 6)
+
+
+def test_safe_state_seeds_python_and_numpy_as_jax():
+    draws = []
+    for seed_fn in (jgen.safe_state, tgen.safe_state):
+        seed_fn(7)
+        draws.append((random.random(), np.random.random()))
+    assert draws[0] == draws[1]
+    t_before = torch.random.get_rng_state()
+    tgen.safe_state(8)
+    assert torch.equal(torch.random.get_rng_state(), t_before)
 
 
 def _scene(rng, n, deg):
