@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's render, training, eval, pipeline,
-multi-card, viewer and gather-experiment paths on one CUDA card and hold
-every kernel on them against its plain PyTorch version.
+multi-card, viewer, gather-experiment and quality paths on one CUDA card
+and hold every kernel on them against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -91,11 +91,31 @@ there, needs no install step and nothing from the network. Phases:
     default shapes and at N = 2^20, each of its three forms held bit for
     bit to the plain version, with the byte bound and the plane form's
     sector floor; ``sort`` and ``xlagather`` once;
-19. one ``{"kernels": [...]}`` line, the card's name and power limit, and
+19. the quality tools: (a) ``pcp_tpu_torch.tools.train_check`` (its
+    scene's 10 GT views, 400 steps, PSNR on 2 views before and after):
+    the JAX tool's bar holds, B2 and B3 launched once a step and B1 once
+    a step, GT view and eval view, and on the arguments of its step with
+    the most pairs B1, B2 and B3 agree with their plain versions as in
+    phases 5 and 10; the dense oracle (``tools.oracle``) on a small cloud
+    on the CPU and on the card within ORACLE_TOL; (b)
+    ``tools.quality_scale_run --smoke`` at the ref100k preset's full width
+    (1.6M SfM points, 400k true Gaussians, 160 cameras at 800x512, 16
+    blocks of 100k, 2^20 slots; the detail block 1500 steps with densify
+    from 500, the control 1500 steps in 2^18 slots, one oracle view): 16
+    blocks, every logged loss finite, the densify variant's population
+    growing within its slots, both variants' PSNR at 1500 above their
+    1000-step snapshot, the production GT PNGs at ORACLE_GT_DB or more
+    against the oracle's GT, B1's float image of that view against the
+    oracle's with no colour correction, at ORACLE_GT_DB in the exact
+    depth order and at ORACLE_RAW_* in the pair key's, B1, B2 and B3
+    launched once a step (B1 also once a GT and snapshot view), and on
+    the arguments of its step with the most pairs held to their plain
+    versions as in (a);
+20. one ``{"kernels": [...]}`` line, the card's name and power limit, and
     the ``{"ok": true, ...}`` line last.
 
-Paths 4, 8, 12, 14, 15, 16a, 16e, 17a and 18 each run with every launch
-count set to 0 just before and read just after.
+Paths 4, 8, 12, 14, 15, 16a, 16e, 17a, 18, 19a and 19b each run with every
+launch count set to 0 just before and read just after.
 
 Any failed check raises: the script then exits non-zero and prints no
 result line. Without a CUDA card it exits 1 before doing anything.
@@ -112,6 +132,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib
 import io
 import json
 import math
@@ -150,7 +171,11 @@ from pcp_tpu_torch.ops import _build
 from pcp_tpu_torch.ops import composite, segsum
 from pcp_tpu_torch.ops.gather import LAYOUTS, gather_pack, gather_pack_plain
 from pcp_tpu_torch.ops import rasterize as rasterize_mod
-from pcp_tpu_torch.ops.binning import bin_gaussians, gaussian_major
+from pcp_tpu_torch.ops.binning import (
+    bin_gaussians,
+    gaussian_major,
+    key_depth_bits,
+)
 from pcp_tpu_torch.ops.projection import TILE, preprocess
 from pcp_tpu_torch.ops.rasterize import rasterize, untile
 from pcp_tpu_torch.scene import cameras as cam_mod
@@ -158,6 +183,7 @@ from pcp_tpu_torch.scene import load_colmap_scene, split_train_test
 from pcp_tpu_torch.train import loop as loop_mod
 from pcp_tpu_torch.train import optim
 from pcp_tpu_torch.train.config import OptimConfig
+from pcp_tpu_torch.train.logging import loss_rows, read_log
 from pcp_tpu_torch.tools import exp_r2
 from pcp_tpu_torch.tools.blend_inputs import blend_inputs, real_block_counts
 from pcp_tpu_torch.train.step import TrainState, app_groups, train_step_impl
@@ -216,6 +242,28 @@ MIXED_STEPS, MIXED_TOL = 3, 1e-4
 VIEWER_WIDE, VIEWER_SCALE = (1920, 1080), 0.5
 VIEWER_FRAMES, VIEWER_PAUSED, VIEWER_REPS = 16, 3, 10
 VIEWER_WAIT_S = 300.0
+# The quality tools: on each of their two paths B1, B2 and B3 are held to
+# their plain versions on the arguments of the path's step with the most
+# pairs, at KERNEL_ATOL, KERNEL_RSUM and KERNEL_RSEG below; the dense oracle
+# on ORACLE_SMALL's (Gaussians, (W, H)) on the CPU and on the card agrees to
+# ORACLE_TOL; the production GT PNGs of the ref100k smoke run reach
+# ORACLE_GT_DB against the oracle's GT (the JAX package's record: 49.56 dB,
+# QUALITY_r05.json; the PNGs truncate to 8 bits and the score is colour
+# corrected), and so does B1's float image of that view against the
+# oracle's float image with no colour correction. The two order a tile's
+# Gaussians differently: the pair key keeps only the top
+# ``binning.key_depth_bits`` bits of each depth (21 at 800x512), equal keys
+# in index order, the oracle the exact depth. In the key's order
+# (``rasterize_dense(depth_bits=...)``) the oracle must give B1's image:
+# ORACLE_RAW_DB or more, each channel's mean offset within ORACLE_RAW_BIAS
+# and every value within ORACLE_RAW_ATOL. Every pixel there blends to
+# T < 1e-4; the oracle takes T as exp of a cumulative log sum, B1 as a
+# running product, so the two part by about 1e-6 relative and a stop can
+# fall one Gaussian apart, which moves a pixel by at most
+# alpha T < 0.99 * 1e-4 / (1 - 0.99) ~ 1e-2.
+ORACLE_SMALL, ORACLE_TOL = (2000, (200, 128)), 1e-5
+ORACLE_GT_DB = 45.0
+ORACLE_RAW_DB, ORACLE_RAW_BIAS, ORACLE_RAW_ATOL = 80.0, 2e-5, 1e-2
 
 # Every kernel of the paths. ``replaces`` is the TPU kernel's pallas_call.
 KERNELS = [
@@ -884,28 +932,37 @@ def device_kernels(prof, per: int) -> list:
             and e.self_device_time_total > 0]
 
 
-def capture_backward(run) -> dict:
-    """Calls ``run()`` with the backward's two stages, ``composite_bwd`` and
-    the segment-sum stage ``pack_gradient``, as ``ops.rasterize`` calls
-    them, recording the arguments each got."""
+def capture_backward(run) -> tuple:
+    """(arguments, ``run()``'s result): calls ``run()`` with the backward's
+    two stages, ``composite_bwd`` and the segment-sum stage
+    ``pack_gradient``, as ``ops.rasterize`` calls them, recording the
+    arguments each got in the step with the most pairs (the last of
+    equals)."""
     seen, real = {}, {"composite_bwd": rasterize_mod.composite_bwd,
                       "pack_gradient": rasterize_mod.pack_gradient}
 
-    def spy(name):
-        def call(*args):
-            seen[name] = tuple(a.detach() if torch.is_tensor(a) else a
-                               for a in args)
-            return real[name](*args)
-        return call
+    def detached(args):
+        return tuple(a.detach() if torch.is_tensor(a) else a for a in args)
+
+    def bwd(*args):
+        if args[1].numel() >= seen.get("n_pairs", -1):
+            seen.update(n_pairs=args[1].numel(), take=True,
+                        composite_bwd=detached(args))
+        return real["composite_bwd"](*args)
+
+    def pack(*args):
+        if seen.pop("take", False):
+            seen["pack_gradient"] = detached(args)
+        return real["pack_gradient"](*args)
 
     try:
-        for name in real:
-            setattr(rasterize_mod, name, spy(name))
-        run()
+        rasterize_mod.composite_bwd = bwd
+        rasterize_mod.pack_gradient = pack
+        out = run()
     finally:
         for name, fn in real.items():
             setattr(rasterize_mod, name, fn)
-    return seen
+    return {k: seen[k] for k in real}, out
 
 
 def timed_steps(step) -> tuple:
@@ -1022,7 +1079,7 @@ def train_times(state: TrainState, cam, gt, ocfg, extent: float) -> dict:
         log(f"  {ms:8.3f} ms/step  {key[:90]}")
     measured = busy > 0
     free = cudnn_free_cost(step, step_ms, busy)
-    inputs = capture_backward(step)
+    inputs, _ = capture_backward(step)
     return {"step_ms": step_ms, "step_ms_all": times,
             "stage_device_ms": stages, "n_pairs": m["n_pairs"],
             "peak_memory_bytes": peak,
@@ -2383,6 +2440,244 @@ def gather_checks(runs: dict, dev) -> dict:
 
 
 # --------------------------------------------------------------------------
+# 19. the quality tools
+# --------------------------------------------------------------------------
+
+
+def quality_kernel_checks(inputs: dict, path: str) -> dict:
+    """B1, B2 and B3 on the arguments of a quality path's step with the
+    most pairs (``capture_backward``) against their plain versions, at the
+    tolerances of phases 5 and 10; B1 gets the arguments B2 got."""
+    bargs = inputs["composite_bwd"]
+    fargs = bargs[:5]
+    color, t_fin, n_contrib = composite.composite_fwd(*fargs)
+    p_color, p_tfin, p_nc = composite.composite_fwd_plain(*fargs)
+    rows = composite.composite_bwd(*bargs)
+    p_rows = composite.composite_bwd_plain(*bargs)
+    g_rows, bins, n = inputs["pack_gradient"]
+    sums = segsum.gathered_segment_sum(g_rows, bins.order, bins.offsets, n)
+    ordered = gaussian_major(g_rows, bins.order)
+    p_sums = segsum.sorted_segment_sum_plain(ordered, bins.pair_gid, n)
+    scale = segsum.sorted_segment_sum_plain(ordered.abs(), bins.pair_gid, n)
+    torch.cuda.synchronize()
+    out = {"n_pairs": int(fargs[1].numel()), "tiles": int(fargs[3].numel()),
+           "gaussians": n,
+           "composite_fwd": max(float((color - p_color).abs().max()),
+                                float((t_fin - p_tfin).abs().max())),
+           "n_contrib_agree": float((n_contrib == p_nc).float().mean()),
+           "composite_bwd": plane_rel(rows, p_rows),
+           "sorted_segment_sum": float(((sums - p_sums).abs()
+                                        / scale.clamp_min(1e-30)).max())}
+    log(f"{path}: its heaviest step ({out['n_pairs']} pairs over "
+        f"{out['tiles']} tiles, {n} Gaussians) against the plain versions: "
+        f"composite_fwd max_abs_err {out['composite_fwd']:.3e} (tol "
+        f"{KERNEL_ATOL}), n_contrib agree {out['n_contrib_agree']:.6f}; "
+        f"composite_bwd per-plane relative {out['composite_bwd']:.3e} (tol "
+        f"{KERNEL_RSUM}); segment sum relative {out['sorted_segment_sum']:.3e}"
+        f" (tol {KERNEL_RSEG})")
+    check(out["composite_fwd"] <= KERNEL_ATOL
+          and out["n_contrib_agree"] >= NCONTRIB_AGREE,
+          f"{path}: composite_fwd vs plain on its step: {out}")
+    check(out["composite_bwd"] <= KERNEL_RSUM,
+          f"{path}: composite_bwd vs plain on its step: {out}")
+    check(out["sorted_segment_sum"] <= KERNEL_RSEG,
+          f"{path}: the segment sum vs plain on its step: {out}")
+    return out
+
+
+def train_check_path() -> dict:
+    """(a) ``tools.train_check`` on the card: its scene's GT views, 400
+    steps and 2 + 2 eval views, with the launch counts from 0; then the
+    kernels on its heaviest step against their plain versions."""
+    from pcp_tpu_torch.tools import train_check
+
+    composite.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    inputs, r = capture_backward(lambda: train_check.run("cuda"))
+    torch.cuda.synchronize()
+    launches = counts()
+    r["wall_s"] = time.perf_counter() - t0
+    log(f"train_check: PSNR {r['before']:.2f} -> {r['after']:.2f} (bar: "
+        f"+{train_check.GAIN_DB} dB and > {train_check.FLOOR_DB} dB) in "
+        f"{r['wall_s']:.1f} s; launches {launches}")
+    check(r["ok"], f"train_check's bar: {r}")
+    steps = train_check.ITERATIONS
+    check(launches["composite_bwd"] == launches["sorted_segment_sum"]
+          == steps and launches["composite_fwd"]
+          == train_check.N_CAMS + steps + 2 * train_check.EVAL_CAMS,
+          f"train_check launches B2 and B3 once a step and B1 once a GT "
+          f"view, step and eval view: {launches}")
+    return dict(r, launches=launches,
+                kernels=quality_kernel_checks(inputs, "train_check"))
+
+
+def oracle_cpu_vs_cuda(seed: int) -> float:
+    """The dense oracle on a small cloud on the CPU and on the card."""
+    from pcp_tpu_torch.ops.projection import CameraIntrin
+    from pcp_tpu_torch.tools.oracle import rasterize_dense
+    from pcp_tpu_torch.tools.synthetic import (
+        look_at_w2c,
+        make_gaussian_cloud,
+        viewmat_of,
+    )
+
+    xyz, rgb, scales, quats, op = make_gaussian_cloud(
+        np.random.default_rng(seed), ORACLE_SMALL[0])
+    w, h = ORACLE_SMALL[1]
+    vm = viewmat_of(*look_at_w2c((5.0, 1.0, 2.0), (0.0, 0.0, 0.0)))
+    intr = CameraIntrin(*(np.float32(v) for v in (0.9 * w, 0.9 * w, w / 2,
+                                                  h / 2)))
+    sh = rgb_to_sh(rgb)[:, None, :]
+    args = (xyz, scales, quats, op, sh, vm, intr, (w, h),
+            np.zeros(3, np.float32), 0)
+    ref_img, ref_t = rasterize_dense(*args, device="cpu")
+    img, t_fin = rasterize_dense(*args, device="cuda")
+    err = float(max(np.abs(img - ref_img).max(), np.abs(t_fin - ref_t).max()))
+    log(f"oracle CPU vs card: {ORACLE_SMALL[0]} Gaussians at {w}x{h}, "
+        f"max abs err {err:.3e} (tolerance {ORACLE_TOL})")
+    check(err <= ORACLE_TOL, f"the oracle on the card matches the CPU: {err}")
+    return err
+
+
+def oracle_vs_b1(qsr, block_dir: Path, view: int, dev) -> dict:
+    """B1's float image of held-out view ``view`` of the true cloud,
+    through ``rasterize`` at the GT's max_per_tile, against the dense
+    oracle's in the exact depth order and in the pair key's, with no
+    colour correction."""
+    from pcp_tpu_torch.scene import load_scene
+    from pcp_tpu_torch.tools.oracle import rasterize_dense
+
+    scene = load_scene(str(block_dir), eval_split=True)
+    info = split_train_test(scene.cameras, True, qsr.LLFFHOLD)[1][view]
+    cam = cam_mod.from_info(info, 1, load_image=False)
+    xyz, rgb, scales, quats, op = qsr.make_true_cloud(
+        np.random.default_rng(31))
+    args = (xyz, scales, quats, op, rgb_to_sh(rgb)[:, None, :], cam.viewmat,
+            qsr._intrin(dev), (qsr.W, qsr.H), np.zeros(3, np.float32), 0)
+    with torch.no_grad():
+        img, _ = rasterize(*args, max_per_tile=4096, device=dev)
+    img = img.cpu().numpy()
+    bits = key_depth_bits(-(-qsr.W // TILE) * -(-qsr.H // TILE))
+    out = {"view": view, "key_depth_bits": bits}
+    for name, kw in (("exact", {}), ("key", {"depth_bits": bits})):
+        o_img, _ = rasterize_dense(*args, device=dev, **kw)
+        diff = img.astype(np.float64) - o_img
+        raw = evaluate_images([img], [o_img], use_color_correct=False,
+                              device=dev)["mean"]
+        out[name] = {"PSNR": raw["PSNR"], "SSIM": raw["SSIM"],
+                     "channel_mean_offset":
+                         diff.reshape(-1, 3).mean(0).tolist(),
+                     "max_abs_err": float(np.abs(diff).max())}
+        r = out[name]
+        log(f"B1 vs the oracle ({name} order) on held-out view {view} "
+            f"({qsr.W}x{qsr.H}, {xyz.shape[0]} Gaussians), float images, no "
+            f"colour correction: PSNR {r['PSNR']:.2f} dB, SSIM "
+            f"{r['SSIM']:.6f}, channel mean offsets "
+            f"{[f'{v:.2e}' for v in r['channel_mean_offset']]}, max_abs_err "
+            f"{r['max_abs_err']:.3e}")
+    check(out["exact"]["PSNR"] >= ORACLE_GT_DB,
+          f"B1's float image vs the oracle's {out['exact']['PSNR']:.2f} dB "
+          f">= {ORACLE_GT_DB}")
+    key = out["key"]
+    check(key["PSNR"] >= ORACLE_RAW_DB
+          and max(map(abs, key["channel_mean_offset"])) <= ORACLE_RAW_BIAS
+          and key["max_abs_err"] <= ORACLE_RAW_ATOL,
+          f"B1's float image vs the oracle's in the key's order (PSNR >= "
+          f"{ORACLE_RAW_DB}, offsets <= {ORACLE_RAW_BIAS}, values within "
+          f"{ORACLE_RAW_ATOL}): {key}")
+    return out
+
+
+def quality_scale_path(root: Path) -> dict:
+    """(b) ``tools.quality_scale_run --smoke`` at the ref100k preset's full
+    width, ``PCP_ORACLE_VIEWS`` = 1, with the launch counts from 0."""
+    from pcp_tpu_torch.scene import load_scene
+
+    with mock.patch.dict(os.environ, {"PCP_QSR_PRESET": "ref100k",
+                                      "PCP_ORACLE_VIEWS": "1"}):
+        qsr = importlib.reload(importlib.import_module(
+            "pcp_tpu_torch.tools.quality_scale_run"))
+        composite.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        inputs, art = capture_backward(lambda: qsr.main(
+            ["--root", str(root), "--smoke", "--device", "cuda"]))
+        torch.cuda.synchronize()
+        launches = counts()
+        wall_s = time.perf_counter() - t0
+    iters = 1500
+    visible = root / "model" / "split_result" / "visible"
+    blocks = sorted(p.name for p in visible.iterdir() if p.is_dir())
+    block_dir = Path(qsr.block_dir_of(str(root), art["workload"]["block"]))
+    n_test = len(split_train_test(load_scene(str(block_dir)).cameras, True,
+                                  qsr.LLFFHOLD)[1])
+    n_gt = qsr.N_CAMS_RING + qsr.N_CAMS_GRID
+    runs = {r["variant"]: r for r in art["runs"]}
+    out = {"wall_s": wall_s, "blocks": len(blocks), "n_test": n_test,
+           "launches": launches, "oracle_gt": art["oracle_gt"],
+           "hbm": art["hbm"], "runs": {}}
+    for name, sub, cap in [("densify", "output_densify_smoke",
+                            qsr.CAPACITY),
+                           ("no_densify_control", "output_control_smoke",
+                            qsr.CAPACITY_CONTROL)]:
+        logged = loss_rows(read_log(str(block_dir / sub)))
+        alive = [r["total_points"] for r in logged]
+        run = runs[name]
+        out["runs"][name] = {
+            k: run[k] for k in ("iterations", "alive_final", "PSNR", "SSIM",
+                                "LPIPS", "wall_minutes", "snapshot_curve",
+                                "population_curve")}
+        out["runs"][name].update(alive_initial=alive[0], alive_max=max(alive))
+        check(all(math.isfinite(r["train_loss_patches/total_loss"])
+                  for r in logged), f"{name}: every logged loss is finite")
+        check(max(alive) <= cap, f"{name}: alive within {cap} slots")
+        snap = run["snapshot_curve"]
+        check(run["iterations"] == iters and snap and snap[-1]["iter"] == 1000
+              and run["PSNR"] > snap[-1]["PSNR"],
+              f"{name}: PSNR at {iters} above the 1000-step snapshot: "
+              f"{snap} -> {run['PSNR']}")
+    dens = out["runs"]["densify"]
+    check(dens["alive_max"] > dens["alive_initial"],
+          f"densify grows the population: {dens['alive_initial']} -> "
+          f"{dens['alive_max']}")
+    check(len(blocks) == 16, f"the partition gives 16 blocks: {blocks}")
+    o_psnr = art["oracle_gt"]["production_gt_vs_oracle_gt"]["PSNR"]
+    check(o_psnr >= ORACLE_GT_DB,
+          f"production GT vs oracle GT {o_psnr:.2f} dB >= {ORACLE_GT_DB}")
+    check(launches["composite_bwd"] == launches["sorted_segment_sum"]
+          == 2 * iters and launches["composite_fwd"]
+          == 2 * iters + n_gt + 4 * n_test,
+          f"the quality path launches B2 and B3 once a step and B1 once a "
+          f"step, GT view and snapshot view ({n_gt} GT views, {n_test} "
+          f"held out): {launches}")
+    out["kernels"] = quality_kernel_checks(inputs, "quality_scale_run")
+    out["oracle_vs_b1"] = oracle_vs_b1(
+        qsr, block_dir, art["oracle_gt"]["views"][0], torch.device("cuda"))
+    log(f"quality_scale_run ref100k --smoke: {len(blocks)} blocks, "
+        f"{n_test} held-out views, the run {wall_s:.1f} s; "
+        + "; ".join(f"{k}: alive {v['alive_initial']} -> {v['alive_final']} "
+                    f"(max {v['alive_max']}), PSNR "
+                    f"{v['snapshot_curve'][-1]['PSNR']:.2f} @1000 -> "
+                    f"{v['PSNR']:.2f} @{v['iterations']}, SSIM "
+                    f"{v['SSIM']:.4f}, LPIPS {v['LPIPS']:.4f} (synthetic), "
+                    f"step ms {[c['step_ms'] for c in v['population_curve']]}"
+                    for k, v in out["runs"].items())
+        + f"; production GT vs oracle GT {o_psnr:.2f} dB, oracle "
+        f"{art['oracle_gt']['seconds_per_view']} s/view; memory "
+        f"{art['hbm']}; launches {launches}")
+    return out
+
+
+def quality_path(root: Path, seed: int, smi: str) -> dict:
+    t_phase = time.perf_counter()
+    res = {"train_check": train_check_path(),
+           "oracle_cpu_vs_cuda": oracle_cpu_vs_cuda(seed),
+           "scale_smoke": quality_scale_path(root)}
+    res.update(phase_s=time.perf_counter() - t_phase, card=smi)
+    log(f"quality tools: the phase {res['phase_s']:.1f} s [{smi}]")
+    return res
+
+
+# --------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -2473,18 +2768,22 @@ def main(argv=None) -> int:
         measured["gather_pack"] = gather_checks(gather["runs"], dev)
         other = exp_r2.main(["sort"])
         other.update(exp_r2.main(["xlagather"]))
+        quality = quality_path(Path(tmp) / "quality", args.seed + 3, smi)
 
     paths = {"render": run["launches"], "train": train["launches"],
              "metrics": ev["launches"], "full_eval": fe["launches"],
              "pipeline": pipe["launches"], "fleet": multi["launches"],
              "intra_block": multi["intra_block_launches"],
-             "viewer": viewer["launches"], "exp_r2": gather["launches"]}
+             "viewer": viewer["launches"],
+             "quality_check": quality["train_check"]["launches"],
+             "quality_scale": quality["scale_smoke"]["launches"],
+             "exp_r2": gather["launches"]}
     main_path_of = {"composite_fwd": "train", "composite_bwd": "train",
                     "sorted_segment_sum": "train", "gather_pack": "exp_r2"}
     print(json.dumps({"render": dict(render, views=run["views"]),
                       "train": dict(train, step=step, small=small),
                       "eval": ev, "full_eval": fe, "pipeline": pipe,
-                      "multi": multi, "viewer": viewer,
+                      "multi": multi, "viewer": viewer, "quality": quality,
                       "exp_r2": dict(other, gather_by_layout=gather[
                           "by_layout"])}))
     print(json.dumps({"kernels": [

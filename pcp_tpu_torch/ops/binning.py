@@ -52,6 +52,14 @@ def _ceil_log2(x: int) -> int:
     return max(1, (x - 1).bit_length())
 
 
+def key_depth_bits(num_tiles: int, key_tiles=None) -> int:
+    """The bits of each depth's fp32 pattern that the pair key keeps: the
+    top 32 - ceil_log2(tiles + 1). Gaussians of a tile whose depths agree
+    in them keep their index order (1600 tiles at 800x512 keep 21 bits,
+    depths 2^-12 apart)."""
+    return 32 - _ceil_log2(max(num_tiles, key_tiles or 0) + 1)
+
+
 def pair_keys(rect, depths, tiles_x, tiles_y, key_tiles=None):
     """(keys (P,) int64, gid (P,) int64, offsets (N + 1,) int64, n_pairs)
     for every Gaussian x tile pair of the rects, in Gaussian-major order;
@@ -62,8 +70,8 @@ def pair_keys(rect, depths, tiles_x, tiles_y, key_tiles=None):
     device = rect.device
     n = rect.shape[0]
     num_tiles = tiles_x * tiles_y
-    tile_bits = _ceil_log2(max(num_tiles, key_tiles or 0) + 1)
-    depth_bits = 32 - tile_bits
+    depth_bits = key_depth_bits(num_tiles, key_tiles)
+    tile_bits = 32 - depth_bits
     if tile_bits > 16:
         raise ValueError(f"{num_tiles} tiles do not fit the packed key")
 
@@ -94,7 +102,7 @@ def bin_gaussians(
     key_tiles=None,
 ) -> TileBins:
     num_tiles = tiles_x * tiles_y
-    depth_bits = 32 - _ceil_log2(max(num_tiles, key_tiles or 0) + 1)
+    depth_bits = key_depth_bits(num_tiles, key_tiles)
     keys, gid, offsets, n_pairs = pair_keys(rect, depths, tiles_x, tiles_y,
                                             key_tiles)
     s_key, order = torch.sort(keys, stable=True)

@@ -7,9 +7,11 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
+
+LOG_NAME = "train_log.jsonl"
 
 
 class TrainLogger:
@@ -24,7 +26,7 @@ class TrainLogger:
             use_tensorboard = os.environ.get("PCP_TENSORBOARD", "1") != "0"
         self.model_path = model_path
         os.makedirs(model_path, exist_ok=True)
-        self.jsonl = open(os.path.join(model_path, "train_log.jsonl"), "a")
+        self.jsonl = open(os.path.join(model_path, LOG_NAME), "a")
         self.tb = None
         if use_tensorboard:
             try:
@@ -50,3 +52,25 @@ class TrainLogger:
         self.jsonl.close()
         if self.tb:
             self.tb.close()
+
+
+def read_log(model_path: str) -> List[dict]:
+    """Every row of ``<model_path>/train_log.jsonl`` in order; [] when
+    there is none."""
+    path = os.path.join(model_path, LOG_NAME)
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(ln) for ln in f]
+
+
+def loss_rows(rows: List[dict]) -> List[dict]:
+    """The training reports among ``rows``: those with ``total_points``
+    (alive Gaussians; the fleet logs its visible count there)."""
+    return [r for r in rows if "total_points" in r]
+
+
+def every(rows: List[dict], n: int = 1000) -> Dict[int, dict]:
+    """{step: report} of the training reports at each multiple of ``n``.
+    A resumed run appends to the log, so the last report of a step wins."""
+    return {r["step"]: r for r in loss_rows(rows) if r["step"] % n == 0}

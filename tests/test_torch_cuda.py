@@ -713,3 +713,35 @@ def test_fleet_and_intra_block_on_the_card(card, tmp_path, monkeypatch):
     assert composite.LAUNCHES["sorted_segment_sum"] == 10 * len(blocks)
     assert run("fleet", [], blocks[:1])[blocks[0]] == seq[blocks[0]]
     assert run("intra", ["--intra_block", "1"], blocks[:1]) == seq
+
+
+def test_oracle_on_the_card_matches_the_cpu(card):
+    """The dense oracle (plain torch, chunked) gives the CPU's image and
+    final T on the card within 1e-5."""
+    from pcp_tpu_torch.tools.oracle import rasterize_dense
+    from pcp_tpu_torch.tools.synthetic import (
+        look_at_w2c,
+        make_gaussian_cloud,
+        viewmat_of,
+    )
+    from pcp_tpu_torch.utils.sh import rgb_to_sh
+
+    xyz, rgb, scales, quats, op = make_gaussian_cloud(
+        np.random.default_rng(13), 800)
+    vm = viewmat_of(*look_at_w2c((5.0, 1.0, 2.0), (0.0, 0.0, 0.0)))
+    intr = CameraIntrin(*(np.float32(v) for v in (90.0, 90.0, 50.0, 32.0)))
+    args = (xyz, scales, quats, op, rgb_to_sh(rgb)[:, None, :], vm, intr,
+            (100, 64), np.zeros(3, np.float32), 0)
+    want = rasterize_dense(*args, device="cpu")
+    got = rasterize_dense(*args, device=card)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=1e-5, rtol=0)
+
+
+def test_train_check_passes_on_the_card(card):
+    """tools.train_check's bar (PSNR up by 2 dB and above 19 dB after 400
+    steps) on the card."""
+    from pcp_tpu_torch.tools import train_check
+
+    r = train_check.run(card)
+    assert r["ok"], r

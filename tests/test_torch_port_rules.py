@@ -1,7 +1,9 @@
 """Rules of the PyTorch/CUDA port that hold without a card.
 
 - No module of ``pcp_tpu_torch`` and not ``chip_smoke.py`` imports JAX,
-  Flax or the JAX package (not even its numpy-only modules).
+  Flax or the JAX package (not even its numpy-only modules), nor the
+  repo's ``tests`` and ``tools`` (the port keeps its own scene factory and
+  quality tools).
 - Entry points resolve their device through ``pcp_tpu_torch.device``:
   ``None``/``"cuda"`` mean the card and raise without one; ``"cpu"`` runs
   only when asked for.
@@ -20,7 +22,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(
     str(p.relative_to(ROOT)) for p in (ROOT / "pcp_tpu_torch").rglob("*.py")
 ) + ["chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "pcp_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "pcp_tpu", "tests", "tools")
 
 
 def _forbidden(module: str) -> bool:
@@ -48,8 +50,11 @@ def test_forbidden_matcher_tells_packages_apart():
     assert _forbidden("pcp_tpu")
     assert _forbidden("pcp_tpu.ops.projection")
     assert _forbidden("jax.numpy")
+    assert _forbidden("tests.synthetic")
+    assert _forbidden("tools.quality_scale_run")
     assert not _forbidden("pcp_tpu_torch")
     assert not _forbidden("pcp_tpu_torch.ops.composite")
+    assert not _forbidden("pcp_tpu_torch.tools.synthetic")
 
 
 @pytest.mark.parametrize("rel", PORT_FILES)
