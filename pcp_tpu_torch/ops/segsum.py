@@ -17,7 +17,10 @@ Each wrapper launches the kernel for CUDA tensors and runs its plain
 PyTorch version for CPU tensors; a CUDA tensor either reaches the kernel or
 raises. Rows are (M, 9) here, one row per pair, where the JAX package keeps
 (9, M) planes. Gaussian g sums the rows of Gaussian-major positions
-[offsets[g], offsets[g + 1]) in that order; positions past offsets[n]
+[offsets[g], offsets[g + 1]) in that order, in float64, and rounds the sum
+once to float32 (an fp32 accumulator's error grows with the segment's
+length past the 1e-6 of its sum of |terms| that the card's check allows
+at the default tier); positions past offsets[n]
 (gid >= n, the TPU kernel's pads) are ignored. The binning already holds
 the offsets (``TileBins.offsets``); ``sorted_segment_sum`` derives them
 from the gids when the caller has none.
@@ -42,12 +45,15 @@ def segment_offsets(s_gid, n: int):
         out_int32=True)
 
 
-def sorted_segment_sum_plain(gs, s_gid, n: int):
-    """``index_add_`` of the rows with gid < n: sequential in row order on
-    the CPU, the order the kernel sums in."""
-    out = torch.zeros((n, gs.shape[1]), dtype=torch.float32, device=gs.device)
+def sorted_segment_sum_plain(gs, s_gid, n: int, fp64: bool = False):
+    """``index_add_`` of the rows with gid < n in float64, rounded once to
+    float32 as the kernel rounds its fp64 sums: sequential in row order on
+    the CPU, the order the kernel sums in. ``fp64`` returns the float64
+    sums unrounded: the witness that says how far an fp32 result is off."""
+    out = torch.zeros((n, gs.shape[1]), dtype=torch.float64, device=gs.device)
     keep = s_gid < n
-    return out.index_add_(0, s_gid[keep].to(torch.int64), gs[keep])
+    out.index_add_(0, s_gid[keep].to(torch.int64), gs[keep].double())
+    return out if fp64 else out.float()
 
 
 def _check_offsets(offsets, n: int, device) -> None:
@@ -83,16 +89,16 @@ def _launch(name: str, args, n: int, device) -> torch.Tensor:
 
 def gathered_segment_sum_plain(rows, order, offsets, n: int):
     """``gaussian_major`` (one scatter of the rows), then
-    ``sorted_segment_sum_plain`` with each position's gid read from
-    ``offsets``."""
+    ``sorted_segment_sum_plain`` (fp64 sums rounded to fp32) with each
+    position's gid read from ``offsets``."""
     ordered = gaussian_major(rows, order)
     lo, hi = int(offsets[0]), int(offsets[n])
     gid = torch.repeat_interleave(
         torch.arange(n, device=rows.device), offsets.diff().to(torch.int64),
         output_size=hi - lo)
-    out = torch.zeros((n, rows.shape[1]), dtype=torch.float32,
+    out = torch.zeros((n, rows.shape[1]), dtype=torch.float64,
                       device=rows.device)
-    return out.index_add_(0, gid, ordered[lo:hi])
+    return out.index_add_(0, gid, ordered[lo:hi].double()).float()
 
 
 def gathered_segment_sum(rows, order, offsets, n: int):

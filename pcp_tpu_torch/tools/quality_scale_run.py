@@ -15,13 +15,19 @@ through the port:
                 capacity, the full schedule, densify 500..15000 every 100,
                 appearance on, no tile clamp; checkpoints every 2000
                 iterations, and a rerun resumes from the newest
-                ``chkpnt<N>.pth``;
+                ``chkpnt<N>.pth`` (the iterations resumed from land in the
+                artifact's ``resumed_from``: the camera shuffle and the
+                densify draws restart there from the seed, as in JAX);
   4. control:   the same block without densify (the quality bar);
   5. eval:      held-out PSNR/SSIM/LPIPS (synthetic-weights LPIPS,
                 labelled) of every saved snapshot, the population and
                 step-time curve from ``train_log.jsonl``, each variant's
                 peak device memory, and GT from the dense oracle
-                (``tools.oracle``) on ``PCP_ORACLE_VIEWS`` held-out views.
+                (``tools.oracle``) on ``PCP_ORACLE_VIEWS`` held-out views;
+                the rows of an artifact already at ``--out`` for variants
+                this eval did not score are kept, so each variant can
+                train and be scored on a machine of its own (the scene and
+                the partition come out the same from the same seed).
 
     [PCP_QSR_PRESET=ref100k] python -m pcp_tpu_torch.tools.quality_scale_run
         [--root DIR] [--phase scene|partition|train|control|eval|all]
@@ -70,6 +76,7 @@ CAPACITY = 1 << 21
 CAPACITY_CONTROL = 1 << 20
 LLFFHOLD = 16
 THRESHOLD = 500_000
+CHECKPOINT_EVERY = 2000          # iterations between resumable checkpoints
 
 # ref100k: the reference's other documented tier (README.md:94-99:
 # threshold_value 100_000 for 8 GB GPUs), point counts and the densify cap
@@ -270,6 +277,25 @@ def _ckpt_iter(path: str) -> int:
     return int(os.path.basename(path)[len("chkpnt"):-len(".pth")])
 
 
+RESUMES = "resumes.json"         # <out_dir>: the iterations resumed from
+PHASE_TIMES = "phase_seconds.json"   # <root>: wall s of scene, partition
+
+
+def _read_json(path: str, default):
+    if not os.path.exists(path):
+        return default
+    with open(path) as f:
+        return json.load(f)
+
+
+def _note_phase(root: str, phase: str, seconds: float) -> None:
+    p = os.path.join(root, PHASE_TIMES)
+    times = _read_json(p, {})
+    times[phase] = round(seconds, 2)
+    with open(p, "w") as f:
+        json.dump(times, f)
+
+
 def _train_block(root, block_id, out_name, iters, densify, capacity,
                  test_iters, device):
     """Train (or resume) one variant; returns (out_dir, wall minutes).
@@ -284,9 +310,10 @@ def _train_block(root, block_id, out_name, iters, densify, capacity,
     from pcp_tpu_torch.cli import train as train_cli
 
     out_dir = os.path.join(block_dir_of(root, block_id), out_name)
-    ckpt_iters = list(range(2000, iters, 2000))
-    # dense early PLY snapshots: the snapshot curve's points
-    save_iters = sorted({1000, 2000, 3000, 4000, 5000, 6000, 8000}
+    ckpt_iters = list(range(CHECKPOINT_EVERY, iters, CHECKPOINT_EVERY))
+    # dense early PLY snapshots: the snapshot curve's points (2500: the
+    # JAX package's ref500k control record ends there, QUALITY_r04.json)
+    save_iters = sorted({1000, 2000, 2500, 3000, 4000, 5000, 6000, 8000}
                         | set(range(10_000, iters + 1, 5000)) | {iters})
     save_iters = [i for i in save_iters if i <= iters]
     argv = [
@@ -322,6 +349,12 @@ def _train_block(root, block_id, out_name, iters, densify, capacity,
     if ckpts:
         argv += ["--start_checkpoint", ckpts[-1]]
         print(f"resuming {out_name} from {ckpts[-1]}")
+        # a resumed run restarts its camera shuffle and densify draws from
+        # the seed (JAX's resume), so the artifact says where that happened
+        res_p = os.path.join(out_dir, RESUMES)
+        resumes = _read_json(res_p, [])
+        with open(res_p, "w") as f:
+            json.dump(resumes + [_ckpt_iter(ckpts[-1])], f)
     cuda = device != "cpu"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
@@ -378,6 +411,7 @@ def phase_eval(root, block_id, variants, out_json, device):
     from pcp_tpu_torch.tools.oracle import rasterize_dense
     from pcp_tpu_torch.utils.sh import rgb_to_sh
 
+    t_eval = time.time()
     dev = torch.device(device)
     lpips_npz = os.path.join(root, "lpips_synth.npz")
     if not os.path.exists(lpips_npz):
@@ -452,6 +486,8 @@ def phase_eval(root, block_id, variants, out_json, device):
             "LPIPS": res["mean"]["LPIPS"],
             "lpips_weights": LPIPS_NOTE,
             "wall_minutes": round(wall_min, 1),
+            "resumed_from": _read_json(os.path.join(out_dir, RESUMES), []),
+            "card": card_of(device),
             "in_loop_evals": evals,
             "snapshot_curve": snap_curve,
             "population_curve": curve,
@@ -502,9 +538,12 @@ def phase_eval(root, block_id, variants, out_json, device):
         oracle_sec["per_variant"] = per_v
         print(json.dumps({"oracle_gt": oracle_sec}, default=float))
 
+    phase_s = _read_json(os.path.join(root, PHASE_TIMES), {})
+    phase_s["eval"] = round(time.time() - t_eval, 2)
     out = {
         "card": card_of(device),
         "device": device,
+        "phase_seconds": phase_s,
         "oracle_gt": oracle_sec,
         "workload": {
             "preset": f"{PRESET} (threshold {THRESHOLD} pts/block; "
@@ -529,10 +568,35 @@ def phase_eval(root, block_id, variants, out_json, device):
         "hbm": memory,
         "runs": rows,
     }
+    _merge_earlier(out, out_json)
     with open(out_json, "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps({"written": out_json}))
     return out
+
+
+def _merge_earlier(out: dict, out_json: str) -> None:
+    """Keeps the variants of an earlier artifact at ``out_json`` that this
+    eval did not score (a variant trained and scored in a run of its own,
+    on the same scene from the same seed): their rows, peak memory and
+    oracle scores, and that run's phase times."""
+    earlier = _read_json(out_json, None)
+    if earlier is None:
+        return
+    mine = {r["variant"] for r in out["runs"]}
+    kept = [r for r in earlier.get("runs", []) if r["variant"] not in mine]
+    if not kept:
+        return
+    out["runs"] = kept + out["runs"]
+    names = {r["variant"] for r in kept}
+    out["hbm"] = {**{k: v for k, v in earlier.get("hbm", {}).items()
+                     if k in names}, **out["hbm"]}
+    per_v = earlier.get("oracle_gt", {}).get("per_variant", {})
+    if "per_variant" in out["oracle_gt"]:
+        out["oracle_gt"]["per_variant"] = {
+            **{k: v for k, v in per_v.items() if k in names},
+            **out["oracle_gt"]["per_variant"]}
+    out["earlier_phase_seconds"] = earlier.get("phase_seconds", {})
 
 
 def main(argv=None):
@@ -570,10 +634,14 @@ def main(argv=None):
     if "scene" in phases and not os.path.isdir(
             os.path.join(root, "sparse")):
         os.makedirs(root, exist_ok=True)
+        t0 = time.time()
         phase_scene(root, rng, device)
+        _note_phase(root, "scene", time.time() - t0)
     if "partition" in phases and not os.path.exists(
             os.path.join(root, "model", "partition_data.pkl")):
+        t0 = time.time()
         phase_partition(root, device)
+        _note_phase(root, "partition", time.time() - t0)
 
     if not any(ph in phases for ph in ("train", "control", "eval")):
         return None

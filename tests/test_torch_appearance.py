@@ -23,6 +23,16 @@ def _rel(a, b):
     return float(np.abs(a - b).max() / (np.abs(b).max() + 1e-30))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # parallel test workers: a multithreaded CPU torch oversubscribes the
+    # cores (a step of these small scenes waits on idle threads)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def flax_app():
     return jax.tree_util.tree_map(

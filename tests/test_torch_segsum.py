@@ -9,7 +9,8 @@ takes the rows in pair-list order with the binning's sort permutation and
 is held to the same kernel on the rows put in Gaussian-major order, on the
 real bins of a small scene and on a skewed segment under a seeded
 permutation. Tolerance
-1e-5: both sum the same fp32 values, in other orders.
+1e-5: both sum the same fp32 values, in other orders (the port in fp64,
+rounded once).
 """
 
 import jax.numpy as jnp
@@ -72,16 +73,44 @@ def test_plain_matches_pallas(case):
 
 def test_sums_in_row_order():
     # the CPU version adds rows in order, as the kernel does: each output is
-    # the sequential fp32 sum of its segment
+    # the sequential fp64 sum of its segment, rounded once to fp32
     rng = np.random.default_rng(5)
     gid = np.sort(rng.integers(0, 16, 200)).astype(np.int32)
     gs = rng.normal(size=(200, 9)).astype(np.float32)
     out = sorted_segment_sum(torch.from_numpy(gs), torch.from_numpy(gid), 16)
+    assert out.dtype == torch.float32
     for g in range(16):
-        acc = np.zeros(9, np.float32)
+        acc = np.zeros(9, np.float64)
         for row in gs[gid == g]:
-            acc = acc + row
-        np.testing.assert_array_equal(out[g].numpy(), acc)
+            acc = acc + row.astype(np.float64)
+        np.testing.assert_array_equal(out[g].numpy(), acc.astype(np.float32))
+
+
+def test_fp64_witness_sums_in_float64():
+    # the witness is the float64 sum of the fp32 rows, rows with gid >= n
+    # left out; the fp32 result is that sum rounded once: within half an
+    # ulp of it, where a sequential fp32 sum of a 3000-row segment drifts
+    # by many
+    rng = np.random.default_rng(9)
+    gid = np.concatenate([np.full(3000, 3), np.sort(rng.integers(4, 40, 500)),
+                          np.full(7, 40)]).astype(np.int32)
+    gs = (rng.normal(size=(gid.shape[0], 9))
+          * rng.uniform(1e-3, 1e3, (gid.shape[0], 1))).astype(np.float32)
+    t_gs, t_gid = torch.from_numpy(gs), torch.from_numpy(gid)
+    w = sorted_segment_sum_plain(t_gs, t_gid, 40, fp64=True)
+    assert w.dtype == torch.float64 and w.shape == (40, 9)
+    ref = np.zeros((40, 9))
+    np.add.at(ref, gid[gid < 40], gs[gid < 40].astype(np.float64))
+    np.testing.assert_allclose(w.numpy(), ref, rtol=1e-12, atol=1e-9)
+    f32 = sorted_segment_sum_plain(t_gs, t_gid, 40)
+    assert f32.dtype == torch.float32
+    assert torch.equal(f32, w.float())
+    scale = sorted_segment_sum_plain(t_gs.abs(), t_gid, 40, fp64=True)
+    rel = ((f32.double() - w).abs() / scale.clamp_min(1e-30)).max()
+    assert rel <= 2.0 ** -24
+    seq = np.cumsum(gs[:3000], axis=0, dtype=np.float32)[-1]
+    assert np.abs(seq - ref[3]).max() > 10 * np.abs(f32[3].numpy()
+                                                     - ref[3]).max()
 
 
 def test_wrapper_checks_its_inputs():

@@ -49,6 +49,16 @@ SH = 3
 CAPACITY = 256
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # parallel test workers: a multithreaded CPU torch oversubscribes the
+    # cores (a step of these small scenes waits on idle threads)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def scene_dir(tmp_path_factory):
     d = tmp_path_factory.mktemp("scene")
