@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's render, training, eval, pipeline,
-multi-card, viewer, gather-experiment and quality paths on one CUDA card
-and hold every kernel on them against its plain PyTorch version.
+multi-card, viewer, gather-experiment, quality and benchmark paths on one
+CUDA card and hold every kernel on them against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -127,11 +127,24 @@ there, needs no install step and nothing from the network. Phases:
     sum and its plain twin (``index_add_``, atomics on the card) are each
     also held to the float64 sum of the same rows, to KERNEL_RSEG of each
     segment's sum of |terms|, as in phase 10;
-20. one ``{"kernels": [...]}`` line, the card's name and power limit, and
+20. the measurement tools: (a) ``pcp_tpu_torch.bench.run_point`` at the
+    canonical point (100k live Gaussians in 2^17 slots at 800x600, 3 + 30
+    steps and the step the roofline counts), B1, B2 and B3 launched once a
+    step, and on the arguments of its step with the most pairs held to
+    their plain versions as in 19(a); (b) ``python -m pcp_tpu_torch.bench``
+    and ``python -m pcp_tpu_torch.tools.partition_bench --out ...`` as
+    subprocesses, their last lines checked: at the canonical point and at
+    each sweep point (500k and 1M at 800x600, 719,802 in 2^21 slots at
+    1280x800) no pair dropped and no tile clamped, ``sol_fraction`` and
+    every stage's share of its roofline bound in (0, 1], the breakdown's
+    stages summing to its device busy time within 1%, and the 5M-point
+    partition in 2 or more blocks that hold every point the outlier
+    filter keeps;
+21. one ``{"kernels": [...]}`` line, the card's name and power limit, and
     the ``{"ok": true, ...}`` line last.
 
-Paths 4, 8, 12, 14, 15, 16a, 16e, 17a, 18, 19a, 19b and 19c each run with
-every launch count set to 0 just before and read just after.
+Paths 4, 8, 12, 14, 15, 16a, 16e, 17a, 18, 19a, 19b, 19c and 20a each run
+with every launch count set to 0 just before and read just after.
 
 Any failed check raises: the script then exits non-zero and prints no
 result line. Without a CUDA card it exits 1 before doing anything.
@@ -169,8 +182,9 @@ from unittest import mock
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
 
+from pcp_tpu_torch import bench
+from pcp_tpu_torch.bench import train_state
 from pcp_tpu_torch.cli import full_eval as full_eval_cli
 from pcp_tpu_torch.cli import metrics as metrics_cli
 from pcp_tpu_torch.cli import render as render_cli
@@ -182,7 +196,6 @@ from pcp_tpu_torch.eval.render_batch import render_view
 from pcp_tpu_torch.io import colmap
 from pcp_tpu_torch.io.ply import save_gaussian_ply
 from pcp_tpu_torch.models import gaussians as G
-from pcp_tpu_torch.models.appearance import init_appearance
 from pcp_tpu_torch.ops import _build
 from pcp_tpu_torch.ops import composite, segsum
 from pcp_tpu_torch.ops.gather import LAYOUTS, gather_pack, gather_pack_plain
@@ -197,12 +210,30 @@ from pcp_tpu_torch.ops.rasterize import rasterize, untile
 from pcp_tpu_torch.scene import cameras as cam_mod
 from pcp_tpu_torch.scene import load_colmap_scene, split_train_test
 from pcp_tpu_torch.train import loop as loop_mod
-from pcp_tpu_torch.train import optim
 from pcp_tpu_torch.train.config import OptimConfig
 from pcp_tpu_torch.train.logging import loss_rows, read_log
 from pcp_tpu_torch.tools import exp_r2
 from pcp_tpu_torch.tools.blend_inputs import blend_inputs, real_block_counts
-from pcp_tpu_torch.train.step import TrainState, app_groups, train_step_impl
+from pcp_tpu_torch.tools.profile_stages import (
+    PROFILED_STEPS,
+    PROFILER_ACTIVITIES,
+    capture_backward,
+    card_text,
+    cuda_ms,
+    device_kernels,
+    profiled_steps,
+    stage_breakdown,
+    timed_steps,
+)
+from pcp_tpu_torch.tools.roofline import (
+    HBM_BYTES_PER_S,
+    blend_work,
+    bound,
+    bwd_bound,
+    bwd_work,
+    fwd_bound,
+)
+from pcp_tpu_torch.train.step import TrainState, train_step_impl
 from pcp_tpu_torch.utils.graphics import rotmat_to_qvec, world_to_view
 from pcp_tpu_torch.utils.image import color_correct
 from pcp_tpu_torch.utils.loss import ssim
@@ -211,10 +242,6 @@ from pcp_tpu_torch.viewer import NetworkGUI
 
 ROOT = Path(__file__).resolve().parent
 SCRATCH = ROOT / "_smoke"          # scene files; listed in .gitignore
-
-# Published peaks of one H100 SXM at 700 W (NVIDIA data sheet).
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
 
 W, H = 1280, 800
 FX = FY = 850.0                    # tools/profile_scale.py's camera
@@ -325,8 +352,6 @@ KERNEL_RSEG = 1e-6
 # holds the port against the JAX package: PSNR in dB, SSIM absolute, LPIPS
 # relative.
 EVAL_TOL = {"PSNR": 1e-3, "SSIM": 1e-5, "LPIPS": 1e-5}
-PROFILER_ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
-                       torch.profiler.ProfilerActivity.CUDA]
 
 
 def log(msg: str) -> None:
@@ -361,11 +386,7 @@ def counts() -> dict:
 
 def card() -> str:
     dev = resolve_device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60, cwd=ROOT,
-    ).stdout.strip().splitlines()[0]
+    smi = card_text(dev)
     log(smi)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(dev)}, "
@@ -550,187 +571,10 @@ def view_prep_bins(params, alive, cam, dev, max_per_tile, stages=None):
     return prep, bins
 
 
-def _slot_samples(pack, gids, start, live, px, py, block_h):
-    """power and alpha of slot k of every tile (``start`` = tile_start + k)
-    at its 256 pixels, and (nt, warps) whether the slot's box of applicable
-    pixels (``composite.pixel_box``) meets each warp's pixels: 8-wide blocks
-    ``block_h`` rows tall, two across the tile, in warp order."""
-    att = pack[gids[torch.where(live, start, 0)].long()]
-    dx, dy = px - att[:, 0:1], py - att[:, 1:2]
-    power = (-0.5 * (att[:, 2:3] * dx * dx + att[:, 4:5] * dy * dy)
-             - att[:, 3:4] * dx * dy)
-    alpha = torch.clamp_max(att[:, 8:9] * torch.exp(power),
-                            composite.ALPHA_MAX)
-    box = composite.pixel_box(att)
-    w = torch.arange(2 * TILE // block_h, device=pack.device)
-    sx = px[:, :1] + 8 * (w % 2)
-    sy = py[:, :1] + block_h * (w // 2)
-    meets = ((box[:, 1:2] >= sx) & (box[:, 0:1] <= sx + 7)
-             & (box[:, 3:4] >= sy) & (box[:, 2:3] <= sy + block_h - 1))
-    return power, alpha, meets
-
-
-def warp_of_pixel(block_h: int, device) -> torch.Tensor:
-    """(256,) the warp that owns each pixel of a tile, for 8 x ``block_h``
-    warp blocks as ``_slot_samples`` lays them out."""
-    lane = torch.arange(TILE * TILE, device=device)
-    return (lane % TILE) // 8 + 2 * ((lane // TILE) // block_h)
-
-
-def blend_work(pack, gids, tile_start, tile_count, tiles_x):
-    """What the blend must do for these inputs, slot by slot as the plain
-    version walks them: samples evaluated (pixel not yet done), of those
-    with power <= 0 (an expf), with alpha >= 1/255 (tested against the
-    stop) and applied; the same four over the samples of the (warp, slot)
-    pairs whose box meets the forward kernel's 8x4-pixel warp (the kernel
-    walks only these pairs, the box test settles the rest); and the
-    (warp, slot) pairs, in all and walked. Checks that every tested sample
-    lies in a walked pair."""
-    px, py = composite.pixel_coords(tile_start.shape[0], tiles_x,
-                                     pack.device)
-    owner = warp_of_pixel(4, pack.device)
-    T = torch.ones_like(px)
-    done = torch.zeros_like(px, dtype=torch.bool)
-    start, count = tile_start.long(), tile_count.long()
-    work = torch.zeros(10, dtype=torch.int64, device=pack.device)
-    for k in range(int(count.max()) if count.numel() else 0):
-        live = k < count
-        power, alpha, meets = _slot_samples(pack, gids, start + k, live, px,
-                                            py, 4)
-        walked = live[:, None] & meets
-        ev = live[:, None] & ~done
-        ex = ev & (power <= 0)
-        ok = ex & (alpha >= composite.ALPHA_MIN)
-        test_t = T * (1 - alpha)
-        stop = ok & (test_t < composite.T_EPS)
-        app = ok & ~stop
-        done |= stop
-        T = torch.where(app, test_t, T)
-        each = (ev, ex, ok, app)
-        work += torch.stack([m.sum() for m in each]
-                            + [(m & walked[:, owner]).sum() for m in each]
-                            + [live.sum() * meets.shape[1], walked.sum()])
-    work = [int(v) for v in work]
-    check(work[6:8] == work[2:4], f"the box holds every tested sample: {work}")
-    return work
-
-
-def bwd_work(pack, gids, tile_start, tile_count, tiles_x, n_contrib):
-    """What the backward must do for these inputs: samples re-evaluated
-    (slot < the pixel's n_contrib), of those with power <= 0 (an expf),
-    applied (alpha >= 1/255) and unclamped (alpha < 0.99); the same four
-    over the samples of the (warp, slot) pairs whose box meets the backward
-    kernel's 8x8-pixel warp (the kernel walks only these pairs); and the
-    (warp, slot) pairs below the warp's largest n_contrib, which the kernel
-    tests, in all and walked. Checks that every applied sample lies in a
-    walked pair."""
-    px, py = composite.pixel_coords(tile_start.shape[0], tiles_x,
-                                     pack.device)
-    start, count = tile_start.long(), tile_count.long()
-    nc = n_contrib.long()
-    nmax = torch.minimum(nc.max(dim=1).values, count)
-    owner = warp_of_pixel(8, pack.device)
-    warp_nc = torch.stack([nc[:, owner == w].max(dim=1).values
-                           for w in range(4)], dim=1)
-    warp_nc = torch.minimum(warp_nc, nmax[:, None])
-    work = torch.zeros(10, dtype=torch.int64, device=pack.device)
-    for k in range(int(nmax.max()) if nmax.numel() else 0):
-        live = k < nmax
-        power, alpha, meets = _slot_samples(pack, gids, start + k, live, px,
-                                            py, 8)
-        tested = k < warp_nc
-        walked = tested & meets
-        ev = live[:, None] & (k < nc)
-        ex = ev & (power <= 0)
-        app = ex & (alpha >= composite.ALPHA_MIN)
-        unc = app & (alpha < composite.ALPHA_MAX)
-        each = (ev, ex, app, unc)
-        work += torch.stack([m.sum() for m in each]
-                            + [(m & walked[:, owner]).sum() for m in each]
-                            + [tested.sum(), walked.sum()])
-    work = [int(v) for v in work]
-    check(work[6:8] == work[2:4],
-          f"the box holds every applied sample: {work}")
-    return work
-
-
-# fp32 operations, counted on the plain per-pixel loop (one per add, mul,
-# compare or division, an expf as 1), over the samples of the walked
-# (warp, slot) pairs; the samples the box test passes over need none of
-# them, and the test itself is 4 compares per (warp, slot) pair. The dense
-# count charges every sample the plain loop evaluates (PR 4's bound).
-BOX_TEST_OPS = 4
-
-
-def fwd_bound(pack, gids, tile_start, work) -> dict:
-    """The forward's bound on these inputs (``blend_work``'s counts)."""
-    ev, ex, ok, app, wev, wex, _, _, slots, _ = work
-    nt = tile_start.shape[0]
-    # bytes: each referenced attribute row, the pair list and the ranges
-    # read once; color, t_fin and n_contrib written once
-    n_rows = int(torch.unique(gids).numel())
-    nbytes = 36 * n_rows + 4 * gids.numel() + 8 * nt + 20 * nt * TILE * TILE
-    # 12 per evaluated sample, 4 more with an expf, 3 more tested, 7 more
-    # applied
-    ops = (12 * wev + 4 * wex + 3 * ok + 7 * app + BOX_TEST_OPS * slots)
-    dense = 12 * ev + 4 * ex + 3 * ok + 7 * app
-    return dict(bound(nbytes, ops),
-                dense_bound_ms=bound(nbytes, dense)["bound_ms"])
-
-
-def bwd_bound(gids, tile_start, work) -> dict:
-    """The backward's bound on these inputs (``bwd_work``'s counts)."""
-    ev, ex, app, unc, wev, wex, _, _, slots, _ = work
-    nt = tile_start.shape[0]
-    n_pix = nt * TILE * TILE
-    n_used = int(torch.unique(gids).numel())
-    # bytes: referenced attribute rows, the pair list and ranges, per pixel
-    # t_fin, n_contrib, 3 colour and 1 t_fin cotangents read once; one
-    # 36-byte row per pair written once
-    nbytes = (36 * n_used + 4 * gids.numel() + 8 * nt + 24 * n_pix
-              + 36 * gids.numel())
-    # 12 per re-evaluated sample, 4 more with an expf, 18 more applied, 21
-    # more unclamped; and one add per nonzero term into its pair's row: r,
-    # g, b for every applied sample, the 6 alpha terms only unclamped
-    applied = (18 + 3) * app + (21 + 6) * unc
-    ops = 12 * wev + 4 * wex + applied + BOX_TEST_OPS * slots
-    dense = 12 * ev + 4 * ex + applied
-    return dict(bound(nbytes, ops),
-                dense_bound_ms=bound(nbytes, dense)["bound_ms"])
-
-
-def bound(nbytes: int, ops: int) -> dict:
-    """The least time for the work on one H100, and what sets it."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes > t_ops else "operations",
-            "bytes": nbytes, "ops": ops, "bytes_ms": t_bytes, "ops_ms": t_ops}
-
-
 def _bound_text(b: dict) -> str:
     return (f"bytes {b['bytes']} ({b['bytes_ms']:.4f} ms), fp32 ops "
             f"{b['ops']} ({b['ops_ms']:.4f} ms), dense bound "
             f"{b['dense_bound_ms']:.4f} ms")
-
-
-def cuda_ms(fn, reps: int, warm: int = 2) -> float:
-    """Mean device ms of ``fn()`` over ``reps`` calls after ``warm``. The
-    timed calls queue behind a spin kernel (``exp_r2``'s), so the host's
-    per-call work is hidden and the events time the launches back to
-    back."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(exp_r2.SPIN_CYCLES)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
 
 
 def composite_checks(args, bins) -> dict:
@@ -926,92 +770,6 @@ def train_path(scene: Path, out: Path) -> dict:
 # --------------------------------------------------------------------------
 
 
-def train_state(params, alive, dev, seed: int) -> TrainState:
-    app = init_appearance(torch.Generator().manual_seed(seed), dev)
-    return TrainState(params, app, optim.init_adam(params),
-                      optim.init_adam(app_groups(app)), alive,
-                      G.init_densify_stats(alive.shape[0], dev))
-
-
-# The profiler ranges that rasterize, Blend and train_step_impl mark, in the
-# order a step runs them; the rest of the device time is autograd's backward
-# of preprocess, the appearance net and the loss, and the few operations
-# outside any range (the GT's conversion, the probe, the gradient list).
-STAGES = ("preprocess", "binning", "composite_fwd", "appearance + loss",
-          "composite_bwd", "segment_sum", "densify stats + adam")
-REST = "the rest: preprocess, appearance and loss backward (autograd)"
-OWN_KERNELS = {"composite_fwd": "composite_fwd_kernel",
-               "composite_bwd": "composite_bwd_kernel",
-               "segment_sum": "segsum_"}   # the inverse and the sum
-
-
-def device_kernels(prof, per: int) -> list:
-    """(name, device ms per ``per``) of every kernel, copy and fill the
-    profiler saw on the card; range annotations are not device work."""
-    return [(e.key, e.self_device_time_total / 1e3 / per)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)
-            and e.self_device_time_total > 0]
-
-
-def capture_backward(run) -> tuple:
-    """(arguments, ``run()``'s result): calls ``run()`` with the backward's
-    two stages, ``composite_bwd`` and the segment-sum stage
-    ``pack_gradient``, as ``ops.rasterize`` calls them, recording the
-    arguments each got in the step with the most pairs (the last of
-    equals)."""
-    seen, real = {}, {"composite_bwd": rasterize_mod.composite_bwd,
-                      "pack_gradient": rasterize_mod.pack_gradient}
-
-    def detached(args):
-        return tuple(a.detach() if torch.is_tensor(a) else a for a in args)
-
-    def bwd(*args):
-        if args[1].numel() >= seen.get("n_pairs", -1):
-            seen.update(n_pairs=args[1].numel(), take=True,
-                        composite_bwd=detached(args))
-        return real["composite_bwd"](*args)
-
-    def pack(*args):
-        if seen.pop("take", False):
-            seen["pack_gradient"] = detached(args)
-        return real["pack_gradient"](*args)
-
-    try:
-        rasterize_mod.composite_bwd = bwd
-        rasterize_mod.pack_gradient = pack
-        out = run()
-    finally:
-        for name, fn in real.items():
-            setattr(rasterize_mod, name, fn)
-    return {k: seen[k] for k in real}, out
-
-
-def timed_steps(step) -> tuple:
-    """(ms of STEP_REPS synchronised warm steps, the last step's metrics),
-    after 3 steps of warm-up."""
-    for _ in range(3):
-        step()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(STEP_REPS):
-        t0 = time.perf_counter()
-        _, m = step()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return times, m
-
-
-def profiled_steps(step):
-    """A profiler run over 3 steps."""
-    with torch.profiler.profile(activities=PROFILER_ACTIVITIES) as prof:
-        for _ in range(3):
-            step()
-        torch.cuda.synchronize()
-    return prof
-
-
 def cudnn_free_cost(step, on_ms: float, on_busy: float) -> dict:
     """The warm step and device busy with cuDNN free to pick
     nondeterministic algorithms. Every ``rasterize`` call sets
@@ -1026,8 +784,8 @@ def cudnn_free_cost(step, on_ms: float, on_busy: float) -> dict:
 
     try:
         rasterize_mod.resolve_device = resolve
-        times, _ = timed_steps(step)
-        rows = device_kernels(profiled_steps(step), 3)
+        times, _ = timed_steps(step, STEP_REPS)
+        rows = device_kernels(profiled_steps(step), PROFILED_STEPS)
     finally:
         rasterize_mod.resolve_device = real
         resolve_device("cuda")
@@ -1063,52 +821,30 @@ def train_times(state: TrainState, cam, gt, ocfg, extent: float) -> dict:
             image_size=(cam.width, cam.height), sh_degree=SH_DEGREE,
             use_appearance=True)
 
-    step()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    times, m = timed_steps(step)
-    peak = torch.cuda.max_memory_allocated(dev)
-    step_ms = statistics.median(times)
-
-    prof = profiled_steps(step)
-    rows = device_kernels(prof, 3)
-    busy = sum(ms for _, ms in rows)
-    stages = dict.fromkeys(STAGES, 0.0)
-    held = {k: set() for k in STAGES}     # kernels each range's time counts
-
-    def kernels_under(e):
-        return {k.name for k in e.kernels}.union(
-            *(kernels_under(c) for c in e.cpu_children))
-
-    for e in prof.events():
-        if e.key in stages and e.device_type == DeviceType.CPU:
-            stages[e.key] += e.device_time_total / 1e3 / 3
-            held[e.key] |= kernels_under(e)
-    # The profiler ties a ctypes launch to its runtime call, not to the
-    # range around it: the port's own kernels join their stage by name.
-    for stage, symbol in OWN_KERNELS.items():
-        if not any(symbol in name for name in held[stage]):
-            stages[stage] += sum(ms for key, ms in rows if symbol in key)
-    stages[REST] = busy - sum(stages.values())
-    top = sorted(rows, key=lambda r: -r[1])[:10]
+    bd = stage_breakdown(step, STEP_REPS)
+    step_ms, times, peak = bd["step_ms"], bd["step_ms_all"], \
+        bd["peak_memory_bytes"]
+    stages = bd["stage_device_ms"] or {}
+    busy = bd["device_busy_ms"] or 0.0
     log(f"train step (SH {SH_DEGREE}, {cam.width}x{cam.height}, "
         f"{int(state.alive.sum())} alive in {state.alive.shape[0]} slots): "
         f"warm {step_ms:.3f} ms median of {[round(x, 3) for x in times]}, "
-        f"n_pairs {m['n_pairs']}, peak memory {peak / 2**30:.2f} GiB")
+        f"n_pairs {bd['n_pairs']}, peak memory "
+        + (f"{peak / 2**30:.2f} GiB" if peak is not None else "not measured"))
     log("  device ms/step by stage (profiler ranges) "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
-        + f"; device busy {busy:.3f} ms/step")
-    for key, ms in top:
+        + f"; device busy {busy:.3f} ms/step, "
+        f"{bd['device_launches_per_step']} device launches a step")
+    for key, ms in bd["top_device_ms"]:
         log(f"  {ms:8.3f} ms/step  {key[:90]}")
-    measured = busy > 0
     free = cudnn_free_cost(step, step_ms, busy)
     inputs, _ = capture_backward(step)
     return {"step_ms": step_ms, "step_ms_all": times,
-            "stage_device_ms": stages, "n_pairs": m["n_pairs"],
+            "stage_device_ms": stages, "n_pairs": bd["n_pairs"],
             "peak_memory_bytes": peak,
-            "device_busy_ms_per_step": busy if measured else None,
-            "device_idle_share": 1 - busy / step_ms if measured else None,
-            "top_device_ms_per_step": [[k[:90], ms] for k, ms in top],
+            "device_busy_ms_per_step": bd["device_busy_ms"],
+            "device_idle_share": bd["device_idle_share"],
+            "top_device_ms_per_step": bd["top_device_ms"],
             "cudnn_nondeterministic": free, "inputs": inputs}
 
 
@@ -1893,8 +1629,9 @@ def intra_vs_single(block_dir: Path, dev) -> dict:
                     state, viewmat, intrin, gt, cam.uid, bg, info.extent,
                     ocfg=ocfg, image_size=(cam.width, cam.height),
                     sh_degree=SH_DEGREE, use_appearance=True, render=render)
-            times, _ = timed_steps(step)
-            busy = sum(ms for _, ms in device_kernels(profiled_steps(step), 3))
+            times, _ = timed_steps(step, STEP_REPS)
+            busy = sum(ms for _, ms in device_kernels(profiled_steps(step),
+                                                      PROFILED_STEPS))
             out[name] = {"step_ms": statistics.median(times),
                          "step_ms_all": times, "device_busy_ms": busy}
     return out
@@ -2775,6 +2512,125 @@ def quality_path(root: Path, seed: int, smi: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# 20. the measurement tools
+# --------------------------------------------------------------------------
+
+
+def _tool_json(args: list, timeout: float) -> dict:
+    """Run ``python -m <args>`` from the checkout as a user would and parse
+    the JSON object on its last line of output."""
+    out = subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
+                         capture_output=True, text=True, timeout=timeout)
+    if out.returncode:
+        log(out.stdout[-4000:])
+        log(out.stderr[-4000:])
+    check(out.returncode == 0, f"{args[0]} exits 0: {out.returncode}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def bench_path(root: Path, smi: str) -> dict:
+    """(a) ``bench.run_point`` at the canonical point in this process, with
+    the launch counts from 0, then B1, B2 and B3 on its step with the most
+    pairs against their plain versions; (b) ``python -m
+    pcp_tpu_torch.bench`` and ``python -m
+    pcp_tpu_torch.tools.partition_bench --out ...`` as subprocesses, their
+    JSON lines checked: no pair dropped or clamped at any point, every
+    roofline share and ``sol_fraction`` at most 1, the breakdown's stages
+    summing to its device busy time, the sweep's points, and the partition
+    in 2 or more blocks that hold every point the outlier filter keeps."""
+    t_phase = time.perf_counter()
+    composite.LAUNCHES.clear()
+    inputs, (ips, honesty) = capture_backward(lambda: bench.run_point(
+        warmup=bench.WARMUP, iters=bench.ITERS, device="cuda",
+        **bench.CANONICAL))
+    torch.cuda.synchronize()
+    launches = counts()
+    # the warm-up and timed steps, and the step whose inputs the roofline
+    # counts
+    steps = bench.WARMUP + bench.ITERS + 1
+    check(launches == {"composite_fwd": steps, "composite_bwd": steps,
+                       "sorted_segment_sum": steps, "gather_pack": 0},
+          f"the bench launches B1, B2 and B3 once a step ({steps}): "
+          f"{launches}")
+    kernels = quality_kernel_checks(inputs, "bench")
+    del inputs
+    torch.cuda.empty_cache()
+
+    root.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    b = _tool_json(["pcp_tpu_torch.bench"], 900)
+    bench_s = time.perf_counter() - t0
+    for key in ("metric", "value", "unit", "vs_baseline", "pairs_per_sec",
+                "n_pairs", "max_tile_load", "overflow", "tile_saturated",
+                "roofline", "geometry", "scale_sweep", "breakdown",
+                "n_dropped", "device_busy_ms", "device_idle_share",
+                "peak_memory_bytes", "device"):
+        check(key in b, f"the bench prints {key}")
+    check(b["device"] == smi, f"the bench's device {b['device']}")
+    points = [dict(b, n_live=bench.CANONICAL["n_points"],
+                   width=bench.CANONICAL["width"])] + b["scale_sweep"]
+    for pt in points:
+        where = f"bench point {pt['n_live']} at width {pt['width']}"
+        check(not pt["overflow"] and not pt["tile_saturated"]
+              and pt["n_dropped"] == 0,
+              f"{where}: no pair dropped or clamped: {pt}")
+        sol = pt["roofline"]["sol_fraction"]
+        check(0 < sol <= 1.0, f"{where}: sol_fraction {sol} in (0, 1]")
+    shares = b["roofline"]["stage_share"]
+    check(all(v is not None and 0 < v <= 1.0 for v in shares.values()),
+          f"every stage share of the canonical point in (0, 1]: {shares}")
+    bd = b["breakdown"]
+    stages = bd["stage_device_ms"]
+    check(all(v >= 0 for v in stages.values())
+          and abs(sum(stages.values()) - bd["device_busy_ms"])
+          <= 0.01 * bd["device_busy_ms"],
+          f"the breakdown's stages sum to its device busy time: {bd}")
+    sweep = [(p["n_live"], p["width"], p["height"]) for p in b["scale_sweep"]]
+    want = [(n, bench.CANONICAL["width"], bench.CANONICAL["height"])
+            for n in bench.SWEEP_POINTS] + [
+        (bench.SCALE_POINT["n_points"], bench.SCALE_POINT["width"],
+         bench.SCALE_POINT["height"])]
+    check(sweep == want and b["scale_sweep"][-1]["capacity"]
+          == bench.SCALE_POINT["capacity"],
+          f"the sweep holds 500k, 1M and the reference-scale point: {sweep}")
+
+    out = root / "PARTITION_BENCH_torch.json"
+    t0 = time.perf_counter()
+    part = _tool_json(["pcp_tpu_torch.tools.partition_bench", "--out",
+                       str(out)], 600)
+    part_s = time.perf_counter() - t0
+    check(json.loads(out.read_text()) == part,
+          "partition_bench writes its line to --out")
+    check(part["n_blocks"] >= 2 and part["all_assigned"],
+          f"the 5M-point partition: 2 or more blocks holding every point "
+          f"the filter keeps: {part}")
+    res = {"launches": launches, "kernels": kernels,
+           "in_process_iters_per_sec": ips, "in_process": honesty,
+           "bench": b, "partition": part, "bench_s": bench_s,
+           "partition_s": part_s, "phase_s": time.perf_counter() - t_phase,
+           "card": smi}
+    log(f"bench: {b['value']:.3f} it/s at the canonical point "
+        f"(vs_baseline {b['vs_baseline']:.3f}, {b['n_pairs']} pairs, step "
+        f"{1e3 / b['value']:.3f} ms, device busy {bd['device_busy_ms']:.3f} "
+        f"ms, idle {bd['device_idle_share']:.3f}, "
+        f"{bd['device_launches_per_step']:.0f} device launches a step, "
+        f"sol_fraction "
+        f"{b['roofline']['sol_fraction']:.4f}); stages "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items())
+        + "; shares " + ", ".join(f"{k} {v:.4f}" for k, v in shares.items())
+        + "; sweep " + "; ".join(
+            f"{p['n_live']} in {p['capacity']} at {p['width']}x"
+            f"{p['height']}: {p['iters_per_sec']:.3f} it/s, {p['n_pairs']} "
+            f"pairs, sol {p['roofline']['sol_fraction']:.4f}"
+            for p in b["scale_sweep"])
+        + f"; in this process {ips:.3f} it/s, launches {launches}; the "
+        f"bench {bench_s:.1f} s; partition {part['value']:.3f} s to "
+        f"{part['n_blocks']} blocks ({part['n_outliers']} outliers), the "
+        f"tool {part_s:.1f} s; the phase {res['phase_s']:.1f} s [{smi}]")
+    return res
+
+
+# --------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -2866,6 +2722,7 @@ def main(argv=None) -> int:
         other = exp_r2.main(["sort"])
         other.update(exp_r2.main(["xlagather"]))
         quality = quality_path(Path(tmp) / "quality", args.seed + 3, smi)
+        bench_res = bench_path(Path(tmp) / "bench", smi)
 
     paths = {"render": run["launches"], "train": train["launches"],
              "metrics": ev["launches"], "full_eval": fe["launches"],
@@ -2875,13 +2732,14 @@ def main(argv=None) -> int:
              "quality_check": quality["train_check"]["launches"],
              "quality_scale": quality["scale_smoke"]["launches"],
              "quality_default_tier": quality["default_tier"]["launches"],
-             "exp_r2": gather["launches"]}
+             "exp_r2": gather["launches"], "bench": bench_res["launches"]}
     main_path_of = {"composite_fwd": "train", "composite_bwd": "train",
                     "sorted_segment_sum": "train", "gather_pack": "exp_r2"}
     print(json.dumps({"render": dict(render, views=run["views"]),
                       "train": dict(train, step=step, small=small),
                       "eval": ev, "full_eval": fe, "pipeline": pipe,
                       "multi": multi, "viewer": viewer, "quality": quality,
+                      "bench": bench_res,
                       "exp_r2": dict(other, gather_by_layout=gather[
                           "by_layout"])}))
     print(json.dumps({"kernels": [

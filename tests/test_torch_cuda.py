@@ -745,3 +745,25 @@ def test_train_check_passes_on_the_card(card):
 
     r = train_check.run(card)
     assert r["ok"], r
+
+
+def test_bench_run_point_on_the_card(card):
+    """``bench.run_point`` on the card at a small scene (20,000 live
+    Gaussians at 400x300, the bench's field of view) with the breakdown: no
+    pair dropped or clamped, the breakdown's stages summing to its device
+    busy time, and the step and every stage within their roofline
+    bounds."""
+    from pcp_tpu_torch import bench
+
+    ips, h = bench.run_point(20_000, 1, 3, width=400, height=300, fx=350.0,
+                             device=card, breakdown_reps=2)
+    assert ips > 0 and h["n_dropped"] == 0
+    assert not h["overflow"] and not h["tile_saturated"]
+    bd = h["breakdown"]
+    stages = bd["stage_device_ms"]
+    assert bd["device_busy_ms"] > 0 and all(v >= 0 for v in stages.values())
+    assert sum(stages.values()) == pytest.approx(bd["device_busy_ms"],
+                                                 rel=1e-3)
+    r = h["roofline"]
+    assert 0 < r["sol_fraction"] <= 1.0
+    assert all(0 < v <= 1.0 for v in r["stage_share"].values()), r
