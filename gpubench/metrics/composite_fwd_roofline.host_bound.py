@@ -1,0 +1,6 @@
+"""`composite_fwd_roofline.train` in the host-bound training cells, where it moves
+`train_steps_per_s.host_bound`: the same reader (gpubench/metrics/composite_fwd_roofline.train.py)."""
+
+from gpubench.harness import metric_reader
+
+read = metric_reader("composite_fwd_roofline.train")

@@ -1,0 +1,8 @@
+"""Device ms per training step under the port's range `preprocess`
+(ops/projection)."""
+
+
+def read(trace):
+    if trace.get("kind") != "train":
+        return None
+    return trace["stage_ms"]["preprocess"]

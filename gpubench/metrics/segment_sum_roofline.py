@@ -1,0 +1,12 @@
+"""B3 (csrc/segsum.cu): the frozen roofline's ideal (gpubench/roofline.py, on
+the profiled inputs) over the device ms under the port's range
+`segment_sum`, in percent; nothing where the range holds no time."""
+
+
+def read(trace):
+    if trace.get("kind") != "train":
+        return None
+    ms = trace["stage_ms"]["segment_sum"]
+    if ms <= 0:
+        return None
+    return 100.0 * trace["ideal_ms"]["segment_sum"] / ms
