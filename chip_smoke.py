@@ -20,7 +20,11 @@ there, needs no install step and nothing from the network. Phases:
 4. the render path: ``pcp_tpu_torch.cli.render.main`` on ``cuda``, with
    every launch count set to 0 just before and read just after;
 5. ``composite_fwd`` against its plain version on one full-width view;
-6. its kernel, plain-version and render times, and its bound;
+6. its kernel, plain-version and render times, and its bound; then the
+   render path's preprocess kernel (``ops/preprocess_fwd``) at the render
+   cell's shape (``PREP_N`` Gaussians, SH 3, 1280x800) against its plain
+   version, its time beside the plain version's and its bound, and its
+   launches: one in a ``render_view`` call, none in a training step;
 7. a small scene rendered through the same code on the CPU and on the card;
 8. the training path: ``pcp_tpu_torch.cli.train.main`` on ``cuda`` from
    the scene's points (~720k alive Gaussians in 2^20 slots, appearance on)
@@ -155,6 +159,11 @@ runs phases 1, 2 and then only phase 14, that many times on the same
 scene, prints each run's PSNR and SSIM per scene as one JSON line, and
 fails unless every run of a scene gives the same bits: the witness that
 training repeats on the card.
+
+    python3 chip_smoke.py --preprocess
+
+runs phases 1, 2 and then only phase 6's preprocess kernel, and prints its
+row as one JSON line.
 """
 
 from __future__ import annotations
@@ -205,7 +214,11 @@ from pcp_tpu_torch.ops.binning import (
     gaussian_major,
     key_depth_bits,
 )
-from pcp_tpu_torch.ops.projection import TILE, preprocess
+from pcp_tpu_torch.ops.preprocess_fwd import (
+    preprocess_params,
+    preprocess_params_plain,
+)
+from pcp_tpu_torch.ops.projection import TILE
 from pcp_tpu_torch.ops.rasterize import rasterize, untile
 from pcp_tpu_torch.scene import cameras as cam_mod
 from pcp_tpu_torch.scene import load_colmap_scene, split_train_test
@@ -214,6 +227,7 @@ from pcp_tpu_torch.train.config import OptimConfig
 from pcp_tpu_torch.train.logging import loss_rows, read_log
 from pcp_tpu_torch.tools import exp_r2
 from pcp_tpu_torch.tools.blend_inputs import blend_inputs, real_block_counts
+from pcp_tpu_torch.tools import preprocess_inputs as prep_inputs
 from pcp_tpu_torch.tools.profile_stages import (
     PROFILED_STEPS,
     PROFILER_ACTIVITIES,
@@ -327,6 +341,9 @@ KERNELS = [
     {"name": "gather_pack", "route": "cuda",
      "source": "pcp_tpu_torch/csrc/gather_pack.cu",
      "replaces": "tools/exp_r2.py:80"},
+    {"name": "preprocess_fwd", "route": "cuda",
+     "source": "pcp_tpu_torch/csrc/preprocess_fwd.cu",
+     "replaces": "none: XLA's fusion of pcp_tpu/ops/projection.py"},
 ]
 
 # Forward kernel vs plain version on the card: every decision (power, the
@@ -348,6 +365,20 @@ NCONTRIB_AGREE = 0.9999
 # the default tier).
 KERNEL_RSUM = 1e-5
 KERNEL_RSEG = 1e-6
+# The render path's preprocess kernel against its plain version at the
+# render cell's shape (PREP_N Gaussians, SH 3, 1280x800), with every 16th
+# slot one of the rows preprocess treats apart: the same fp32 operations in
+# the same order (tests/test_torch_cuda.py PREP_*), so every row to
+# PREP_RTOL (NaN where the plain row is NaN) and the integer outputs (rect,
+# radii, visible) equal but where the plain value before truncation or ceil
+# lies within PREP_NEAR of an integer, on at most PREP_FLIPS of the rows. Its
+# bound counts one read of each stored parameter, the alive flag, and one
+# write of each output; PREP_FROZEN_BYTES is the benchmark's frozen count
+# (gpubench/roofline.py, 11 geometry + 48 SH + 16 output floats).
+PREP_N = 8_000_000
+PREP_RTOL, PREP_NEAR, PREP_FLIPS = 1e-6, 1e-5, 1e-3
+PREP_BYTES = 4 * (3 + 3 + 4 + 1 + 3 + 45) + 1 + 4 * (9 + 1 + 4 + 1) + 1
+PREP_FROZEN_BYTES = 4 * (11 + 48 + 16)
 # The eval path on the card against the CPU, as tests/test_torch_eval.py
 # holds the port against the JAX package: PSNR in dB, SSIM absolute, LPIPS
 # relative.
@@ -532,8 +563,9 @@ def main_path(scene: Path, model: Path) -> dict:
         check(pngs == [f"{i:05d}.png" for i in range(len(views))],
               f"{sub}/ holds one PNG per view")
     check(launches == {"composite_fwd": len(views), "composite_bwd": 0,
-                       "sorted_segment_sum": 0, "gather_pack": 0},
-          f"the render path launches the forward kernel only: {launches}")
+                       "sorted_segment_sum": 0, "gather_pack": 0,
+                       "preprocess_fwd": len(views)},
+          f"the render path launches the forward kernels only: {launches}")
     check(len(views) == TEST_VIEWS, f"{TEST_VIEWS} test views rendered")
     check(all(v["n_dropped"] == 0 for v in views), "n_dropped == 0")
     log(f"cli render: {len(views)} views in {wall:.1f} s, launches "
@@ -548,15 +580,12 @@ def main_path(scene: Path, model: Path) -> dict:
 
 
 def view_prep_bins(params, alive, cam, dev, max_per_tile, stages=None):
-    """preprocess and bin_gaussians for one view, as rasterize runs them;
-    with ``stages``, adds each one's synchronised wall time to it."""
+    """preprocess and bin_gaussians for one view, as ``render_view`` runs
+    them; with ``stages``, adds each one's synchronised wall time to it."""
     viewmat, intrin = cam_mod.camera_tensors(cam, dev)
     t = time.perf_counter()
-    prep = preprocess(
-        params["xyz"], G.scaling_act(params["scaling"]), params["rotation"],
-        G.opacity_act(params["opacity"])[:, 0] * alive.float(),
-        G.sh_coeffs(params), viewmat, intrin, (cam.width, cam.height),
-        SH_DEGREE)
+    prep, _ = preprocess_params(params, alive, viewmat, intrin,
+                                (cam.width, cam.height), SH_DEGREE)
     if stages is not None:
         torch.cuda.synchronize()
         stages["preprocess"] += time.perf_counter() - t
@@ -666,6 +695,83 @@ def render_times(params, alive, cams, dev, max_per_tile) -> dict:
             "top_device_ms_per_view": [[k[:90], ms] for k, ms in top]}
 
 
+def preprocess_path(seed: int, dev) -> dict:
+    """The preprocess kernel at the render cell's shape against its plain
+    version, its time, the plain version's and its bound; then one
+    ``render_view`` call (one launch) and one training step on the first
+    200k of the same slots (none)."""
+    viewmat, intrin = prep_inputs.view(W, H, dev)
+    params, alive = prep_inputs.preprocess_inputs(
+        PREP_N, 15, viewmat, intrin, W, H, seed, dev)
+    args = (params, alive, viewmat, intrin, (W, H), SH_DEGREE)
+    prep, pack = preprocess_params(*args)
+    p_prep, p_pack, near = prep_inputs.plain_near_integer(PREP_NEAR, *args)
+    torch.cuda.synchronize()
+    gaps = prep_inputs.kernel_gaps(prep, pack, p_prep, p_pack, near)
+    a, b = gaps["pack"], gaps["p_pack"]
+    same = (a == b) | (a.isnan() & b.isnan())
+    gap = ((a - b).abs() / b.abs().clamp_min(1.0)).nan_to_num(float("inf"))
+    rel = float(gap.masked_fill(same, 0.0).max())
+    bits = float(same.all(1).float().mean())
+    flips = gaps["flips"]
+    log(f"preprocess_fwd vs plain at {PREP_N} Gaussians: rows bit for bit "
+        f"{bits:.6f}, largest gap {rel:.3e} of max(|value|, 1) (tol "
+        f"{PREP_RTOL}), integer outputs apart on {flips} rows "
+        f"({gaps['far_flips']} not within {PREP_NEAR} of an integer); "
+        f"visible {int(prep['visible'].sum())}")
+    check(rel <= PREP_RTOL, "preprocess_fwd rows vs plain")
+    check(gaps["far_flips"] == 0 and flips <= PREP_FLIPS * PREP_N,
+          "preprocess_fwd rect/radii/visible")
+    check(torch.equal(prep["depths"], p_prep["depths"]), "depths")
+    del prep, pack, p_prep, p_pack, near, gaps, a, b, same, gap
+
+    ms = cuda_ms(lambda: preprocess_params(*args), reps=50)
+    plain_ms = cuda_ms(lambda: preprocess_params_plain(*args), reps=3,
+                       warm=1)
+    bound_ms = PREP_N * PREP_BYTES / HBM_BYTES_PER_S * 1e3
+    frozen_ms = PREP_N * PREP_FROZEN_BYTES / HBM_BYTES_PER_S * 1e3
+    log(f"preprocess_fwd {ms:.4f} ms ({bound_ms / ms:.1%} of its bound "
+        f"{bound_ms:.4f} ms, {PREP_BYTES} B a Gaussian; the frozen count "
+        f"{frozen_ms:.4f} ms), plain {plain_ms:.3f} ms")
+
+    cam = cam_mod.Camera(uid=0, viewmat=viewmat.cpu().numpy(),
+                         fx=float(intrin.fx), fy=float(intrin.fy), width=W,
+                         height=H)
+    bg = torch.zeros(3, device=dev)
+    composite.LAUNCHES.clear()
+    render_view(params, alive, cam, SH_DEGREE, bg, device=dev)
+    view_launches = counts()
+    small = min(200_000, PREP_N)
+    p = {k: v[:small].clone() for k, v in params.items()}
+    del params, alive, args
+    state = train_state(p, torch.ones(small, dtype=torch.bool, device=dev),
+                        dev, seed)
+    gt = torch.zeros((H, W, 3), dtype=torch.uint8, device=dev)
+    composite.LAUNCHES.clear()
+    train_step_impl(state, viewmat, intrin, gt, 0, bg, 1.0,
+                    ocfg=OptimConfig(), image_size=(W, H),
+                    sh_degree=SH_DEGREE, use_appearance=True)
+    torch.cuda.synchronize()
+    step_launches = counts()
+    log(f"launches: render_view {view_launches}, a training step "
+        f"{step_launches}")
+    check(view_launches["preprocess_fwd"] == 1
+          and view_launches["composite_fwd"] == 1,
+          "render_view launches the preprocess kernel once")
+    check(step_launches["preprocess_fwd"] == 0
+          and step_launches["composite_bwd"] == 1,
+          "a training step keeps autograd's preprocess")
+    del state
+    torch.cuda.empty_cache()
+    return {"n": PREP_N, "rows_bit_for_bit": bits, "max_rel_gap": rel,
+            "integer_flips": flips, "ms": ms, "kernel_ms": ms,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+            "frozen_bound_ms": frozen_ms,
+            "share_of_bound": bound_ms / ms,
+            "launches_render_view": view_launches["preprocess_fwd"],
+            "launches_train_step": step_launches["preprocess_fwd"]}
+
+
 # --------------------------------------------------------------------------
 # 7. CPU vs card on a small scene
 # --------------------------------------------------------------------------
@@ -751,6 +857,8 @@ def train_path(scene: Path, out: Path) -> dict:
     check(launches["composite_bwd"] == TRAIN_ITERS
           and launches["sorted_segment_sum"] == TRAIN_ITERS,
           f"one backward and one segment sum per step: {launches}")
+    check(launches["preprocess_fwd"] == TEST_VIEWS,
+          f"the preprocess kernel in the eval views only: {launches}")
     check(launches["composite_fwd"] == TRAIN_ITERS + TEST_VIEWS,
           f"one forward per step and per eval view: {launches}")
     ev = json.loads((out / f"eval_{TRAIN_ITERS}.json").read_text())
@@ -1229,7 +1337,7 @@ def full_eval_path(root: Path, seed: int, dev) -> dict:
     check(launches == {"composite_fwd": n * (FULL_EVAL_ITERS + 2),
                        "composite_bwd": n * FULL_EVAL_ITERS,
                        "sorted_segment_sum": n * FULL_EVAL_ITERS,
-                       "gather_pack": 0},
+                       "gather_pack": 0, "preprocess_fwd": 2 * n},
           f"full_eval's launches: {launches}")
     log(f"cli full_eval: {n} scenes x {FULL_EVAL_ITERS} iterations, "
         f"render and metrics in {wall:.1f} s, launches {launches}, means "
@@ -1495,7 +1603,8 @@ def pipeline_path(root: Path, seed: int, dev, weights: str,
     n_steps = len(points) * PIPE_ITERS + 2 * (PIPE_ITERS - PIPE_CKPT)
     check(launches == {"composite_fwd": n_steps + n_views,
                        "composite_bwd": n_steps,
-                       "sorted_segment_sum": n_steps, "gather_pack": 0},
+                       "sorted_segment_sum": n_steps, "gather_pack": 0,
+                       "preprocess_fwd": n_views},
           f"the pipeline launches B1, B2 and B3: {launches}")
     out = {"launches": launches, "partition_s": partition_s,
            "blocks": len(points), "points_per_block": points,
@@ -1714,7 +1823,8 @@ def multi_path(root: Path, pipe: dict, dev, smi: str) -> dict:
     n_steps = len(blocks) * PIPE_ITERS
     check(launches == {"composite_fwd": n_steps + n_eval,
                        "composite_bwd": n_steps,
-                       "sorted_segment_sum": n_steps, "gather_pack": 0},
+                       "sorted_segment_sum": n_steps, "gather_pack": 0,
+                       "preprocess_fwd": n_eval},
           f"the fleet launches B1, B2 and B3 per block step and B1 per "
           f"eval view ({n_eval}): {launches}")
     iter_ms = statistics.median(iter_s[1:]) * 1e3
@@ -1818,7 +1928,7 @@ def multi_path(root: Path, pipe: dict, dev, smi: str) -> dict:
     check(intra_launches == {"composite_fwd": PIPE_ITERS,
                              "composite_bwd": PIPE_ITERS,
                              "sorted_segment_sum": PIPE_ITERS,
-                             "gather_pack": 0},
+                             "gather_pack": 0, "preprocess_fwd": 0},
           f"intra-block launches B1, B2 and B3 once a step: "
           f"{intra_launches}")
 
@@ -2016,7 +2126,8 @@ def viewer_live(scene: Path, out: Path, phase8_ply: Path, test) -> dict:
           f"no step across the paused frames: polls {polls}")
     check(launches == {"composite_fwd": TRAIN_ITERS + TEST_VIEWS + len(msgs),
                        "composite_bwd": TRAIN_ITERS,
-                       "sorted_segment_sum": TRAIN_ITERS, "gather_pack": 0},
+                       "sorted_segment_sum": TRAIN_ITERS, "gather_pack": 0,
+                       "preprocess_fwd": TEST_VIEWS + len(msgs)},
           f"B1 once per step, eval view and frame: {launches}")
     ply = out / "point_cloud" / f"iteration_{TRAIN_ITERS}" / "point_cloud.ply"
     check(ply.read_bytes() == phase8_ply.read_bytes(),
@@ -2549,7 +2660,8 @@ def bench_path(root: Path, smi: str) -> dict:
     # counts
     steps = bench.WARMUP + bench.ITERS + 1
     check(launches == {"composite_fwd": steps, "composite_bwd": steps,
-                       "sorted_segment_sum": steps, "gather_pack": 0},
+                       "sorted_segment_sum": steps, "gather_pack": 0,
+                       "preprocess_fwd": 0},
           f"the bench launches B1, B2 and B3 once a step ({steps}): "
           f"{launches}")
     kernels = quality_kernel_checks(inputs, "bench")
@@ -2639,6 +2751,8 @@ def main(argv=None) -> int:
     ap.add_argument("--full-eval-runs", type=int, default=0,
                     help="run only phase 14, this many times, and check "
                     "that every run gives the same bits")
+    ap.add_argument("--preprocess", action="store_true",
+                    help="run only phase 6's preprocess kernel")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this script runs only on one",
@@ -2650,6 +2764,11 @@ def main(argv=None) -> int:
     if args.full_eval_runs:
         print(json.dumps(full_eval_spread(args.full_eval_runs, args.seed + 1,
                                           dev)))
+        return 0
+    if args.preprocess:
+        print(json.dumps(dict(KERNELS[-1], **preprocess_path(args.seed,
+                                                             dev))))
+        print(smi)
         return 0
 
     SCRATCH.mkdir(exist_ok=True)
@@ -2681,6 +2800,7 @@ def main(argv=None) -> int:
         measured = {"composite_fwd": composite_checks(inputs, bins)}
         del prep, bins, inputs
         render = render_times(params, alive, cams, dev, max_per_tile)
+        measured["preprocess_fwd"] = preprocess_path(args.seed, dev)
         cpu_vs_cuda(params, alive, cams[0], 40_000)
 
         train = train_path(scene, Path(tmp) / "train")
@@ -2734,7 +2854,8 @@ def main(argv=None) -> int:
              "quality_default_tier": quality["default_tier"]["launches"],
              "exp_r2": gather["launches"], "bench": bench_res["launches"]}
     main_path_of = {"composite_fwd": "train", "composite_bwd": "train",
-                    "sorted_segment_sum": "train", "gather_pack": "exp_r2"}
+                    "sorted_segment_sum": "train", "gather_pack": "exp_r2",
+                    "preprocess_fwd": "render"}
     print(json.dumps({"render": dict(render, views=run["views"]),
                       "train": dict(train, step=step, small=small),
                       "eval": ev, "full_eval": fe, "pipeline": pipe,

@@ -105,9 +105,6 @@ def rasterize(
     def on(t):
         return torch.as_tensor(t, dtype=torch.float32, device=dev)
 
-    w, h = int(image_size[0]), int(image_size[1])
-    tiles_x = (w + TILE - 1) // TILE
-    tiles_y = (h + TILE - 1) // TILE
     intrin = CameraIntrin(*(on(v) for v in intrin))
     with record_function("preprocess"):
         prep = preprocess(
@@ -116,13 +113,23 @@ def rasterize(
             means2d_offset=None if means2d_offset is None
             else on(means2d_offset))
         pack = pack_attributes(prep)
+    return blend_image(prep, pack, image_size, on(background), max_per_tile)
+
+
+def blend_image(prep, pack, image_size, background, max_per_tile: int):
+    """The rasterizer after preprocess: binning of ``prep``'s rects and
+    depths, the blend of ``pack`` (differentiable), the untiled image over
+    ``background`` (3,) and the aux dict of ``rasterize``."""
+    w, h = int(image_size[0]), int(image_size[1])
+    tiles_x = (w + TILE - 1) // TILE
+    tiles_y = (h + TILE - 1) // TILE
     with record_function("binning"):
         bins = bin_gaussians(prep["rect"], prep["depths"], tiles_x, tiles_y,
                              max_per_tile)
     color, t_fin = Blend.apply(pack, bins, tiles_x)
     color_img = untile(color, tiles_x, tiles_y, w, h)
     t_img = untile(t_fin[:, None, :], tiles_x, tiles_y, w, h)[..., 0]
-    image = color_img + t_img[..., None] * on(background).reshape(1, 1, 3)
+    image = color_img + t_img[..., None] * background.reshape(1, 1, 3)
     aux = {
         "radii": prep["radii"],
         "visible": prep["visible"],

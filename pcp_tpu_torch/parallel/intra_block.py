@@ -46,10 +46,9 @@ import torch
 import torch.distributed as dist
 
 from pcp_tpu_torch.device import DeviceLike, resolve_device
-from pcp_tpu_torch.models import gaussians as G
 from pcp_tpu_torch.ops.binning import bin_gaussians
-from pcp_tpu_torch.ops.composite import pack_attributes
-from pcp_tpu_torch.ops.projection import TILE, CameraIntrin, preprocess
+from pcp_tpu_torch.ops.preprocess_fwd import preprocess_params_plain
+from pcp_tpu_torch.ops.projection import TILE, CameraIntrin
 from pcp_tpu_torch.ops.rasterize import Blend, untile
 from pcp_tpu_torch.parallel import distributed as pdist
 from pcp_tpu_torch.scene import cameras as cam_mod
@@ -165,11 +164,9 @@ def sharded_render(params, alive, viewmat, intrin: CameraIntrin, image_size,
     tiles_y = (h + TILE - 1) // TILE
     band_rows = (tiles_y + d - 1) // d
     r0 = r * band_rows
-    opac = G.opacity_act(params["opacity"])[:, 0] * alive.to(torch.float32)
-    prep = preprocess(params["xyz"], G.scaling_act(params["scaling"]),
-                      params["rotation"], opac, G.sh_coeffs(params), viewmat,
-                      intrin, (w, h), sh_degree, means2d_offset=means2d_offset)
-    pack = pack_attributes(prep)
+    prep, pack = preprocess_params_plain(params, alive, viewmat, intrin,
+                                         (w, h), sh_degree,
+                                         means2d_offset=means2d_offset)
     depths, rect = prep["depths"].detach(), prep["rect"]
     pack = _GatherRows.apply(pack)
     depths, rect = _gather_cat(depths), _gather_cat(rect)

@@ -11,7 +11,8 @@ fixed-capacity state, called by the loop on the reference cadence.
 
 The loss and the update run inside ``torch.profiler.record_function``
 ranges (``appearance + loss``, ``densify stats + adam``), beside those of
-``ops.rasterize``, so a profiler run reads each stage's device time.
+``ops.preprocess_fwd`` and ``ops.rasterize``, so a profiler run reads each
+stage's device time.
 """
 
 from __future__ import annotations
@@ -31,8 +32,12 @@ from pcp_tpu_torch.models.appearance import (
     decouple_appearance,
     net_tensors_from_flax,
 )
+from pcp_tpu_torch.ops.preprocess_fwd import (
+    preprocess_params,
+    preprocess_params_plain,
+)
 from pcp_tpu_torch.ops.projection import CameraIntrin
-from pcp_tpu_torch.ops.rasterize import rasterize
+from pcp_tpu_torch.ops.rasterize import blend_image
 from pcp_tpu_torch.train import optim
 from pcp_tpu_torch.train.config import OptimConfig
 from pcp_tpu_torch.utils.general import expon_lr
@@ -101,24 +106,30 @@ def render_gaussians(
     device: DeviceLike = None,
 ):
     """Activate the pre-activation params and rasterize. Dead slots get
-    opacity 0 and are culled by preprocess."""
-    opac = G.opacity_act(params["opacity"])[:, 0] * alive.to(torch.float32)
-    return rasterize(
-        params["xyz"],
-        G.scaling_act(params["scaling"]) * scaling_modifier,
-        params["rotation"],
-        opac,
-        G.sh_coeffs(params),
-        viewmat,
-        intrin,
-        image_size,
-        background,
-        sh_degree,
-        max_per_tile=max_per_tile,
-        means2d_offset=means2d_offset,
-        tan_fov=tan_fov,
-        device=device,
-    )
+    opacity 0 and are culled by preprocess.
+
+    Where no gradient can flow (autograd off, or no parameter requiring
+    one) and there is no ``means2d_offset`` probe, the view's preprocess is
+    ``preprocess_fwd.preprocess_params``, one kernel on the card reading the
+    stored parameters in place; otherwise it is its plain version under
+    autograd. Both then bin and blend through ``rasterize.blend_image``."""
+    dev = resolve_device(device)
+
+    def on(t):
+        return torch.as_tensor(t, dtype=torch.float32, device=dev)
+
+    args = ({k: on(params[k]).contiguous() for k in G.PARAM_KEYS},
+            torch.as_tensor(alive, device=dev).contiguous(), on(viewmat),
+            CameraIntrin(*(on(v) for v in intrin)), image_size, sh_degree)
+    kw = dict(scaling_modifier=scaling_modifier, tan_fov=tan_fov)
+    if means2d_offset is None and not (torch.is_grad_enabled() and any(
+            params[k].requires_grad for k in G.PARAM_KEYS)):
+        prep, pack = preprocess_params(*args, **kw)
+    else:
+        prep, pack = preprocess_params_plain(
+            *args, **kw, means2d_offset=None if means2d_offset is None
+            else on(means2d_offset))
+    return blend_image(prep, pack, image_size, on(background), max_per_tile)
 
 
 def photometric_loss(image, gt, app, view_idx, ocfg: OptimConfig,

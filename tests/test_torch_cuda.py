@@ -198,6 +198,78 @@ def test_poll_viewer_on_the_card_matches_the_cpu(card, monkeypatch):
     torch.testing.assert_close(image, plain, rtol=0, atol=ATOL)
 
 
+# The preprocess kernel (csrc/preprocess_fwd.cu) takes the plain version's
+# fp32 operations in its order: built with --fmad=false, it rounds every
+# multiply and add apart, as the plain version's separate launches do;
+# expf, logf, sqrtf, ceilf and the divisions are the same instructions on
+# both paths; and its two norms (quaternion, view direction) sum their
+# squares in the order torch.linalg.norm's reduction takes on the card. On
+# these inputs it gives the plain version's bits. PREP_RTOL of each value
+# (PREP_ATOL near 0) leaves room for a library function that another
+# PyTorch build rounds otherwise; NaN where the plain row is NaN (a
+# Gaussian on the camera's plane), on every row. Integer outputs (rect,
+# radii, visible) may differ only where the plain fp32 value before
+# truncation or ceil lies within PREP_NEAR of an integer, on at most
+# PREP_FLIPS of the rows (tools/preprocess_inputs.kernel_gaps).
+PREP_RTOL = 1e-6
+PREP_ATOL = 1e-6
+PREP_NEAR = 1e-5
+PREP_FLIPS = 1e-3
+PREP_CASES = {
+    "sh0": dict(n=127, deg=0), "sh1": dict(n=127, deg=1),
+    "sh1_rest3": dict(n=127, deg=1, rest=3), "sh2": dict(n=127, deg=2),
+    "sh3": dict(n=127, deg=3), "one": dict(n=1, deg=3),
+    "large": dict(n=(1 << 17) + 3, deg=3),
+    "modifier": dict(n=1143, deg=3, scaling_modifier=0.5),
+    "tan_fov": dict(n=1143, deg=3, tan_fov=(0.31, 0.27)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PREP_CASES))
+def test_preprocess_fwd_matches_plain(card, case):
+    """The kernel against its plain version on the card, on slots with
+    dead, behind-the-near-plane, needle (det <= 0), faint (opacity below
+    1/255) and off-screen rows at 333x187 (a partial tile row and column);
+    N is never a multiple of the kernel's 128-Gaussian chunk."""
+    from pcp_tpu_torch.ops.preprocess_fwd import preprocess_params
+    from pcp_tpu_torch.tools.preprocess_inputs import (kernel_gaps,
+                                                       plain_near_integer,
+                                                       preprocess_inputs,
+                                                       row_kind, view)
+
+    cfg = dict(PREP_CASES[case])
+    n, deg = cfg.pop("n"), cfg.pop("deg")
+    rest = cfg.pop("rest", 15)
+    w, h = 333, 187
+    viewmat, intrin = view(w, h, card)
+    params, alive = preprocess_inputs(n, rest, viewmat, intrin, w, h,
+                                      seed=n + deg, device=card)
+    args = (params, alive, viewmat, intrin, (w, h), deg)
+    before = composite.LAUNCHES["preprocess_fwd"]
+    prep, pack = preprocess_params(*args, **cfg)
+    assert composite.LAUNCHES["preprocess_fwd"] == before + 1
+    p_prep, p_pack, near = plain_near_integer(PREP_NEAR, *args, **cfg)
+    torch.cuda.synchronize()
+    assert composite.LAUNCHES["preprocess_fwd"] == before + 1
+
+    gaps = kernel_gaps(prep, pack, p_prep, p_pack, near)
+    assert gaps["far_flips"] == 0, gaps["far_flips"]
+    assert gaps["flips"] <= max(1, PREP_FLIPS * n)
+    torch.testing.assert_close(gaps["pack"], gaps["p_pack"],
+                               rtol=PREP_RTOL, atol=PREP_ATOL,
+                               equal_nan=True)
+    torch.testing.assert_close(prep["depths"], p_prep["depths"], rtol=0,
+                               atol=0)
+    assert prep["rect"].dtype == torch.int32
+    assert prep["visible"].dtype == torch.bool
+    if n > 1000:   # every special row is there, and each is culled
+        kind = row_kind(n, card)
+        assert not p_prep["visible"][(kind == 1) | (kind == 4)
+                                     | (kind == 5)].any()
+        assert not p_prep["visible"][kind == 3].all()
+        assert p_prep["visible"][kind == 0].float().mean() > 0.5
+
+
 @pytest.mark.parametrize("seed,max_count", [(0, 40), (1, 700), (2, 1500)])
 def test_composite_bwd_matches_plain(card, seed, max_count):
     args = _bins(seed, 8, 5, max_count, card)
