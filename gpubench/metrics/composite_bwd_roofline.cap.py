@@ -1,0 +1,6 @@
+"""`composite_bwd_roofline` in the cell at the densify cap, where it moves
+`train_steps_per_s`: the same reader (gpubench/metrics/composite_bwd_roofline.py)."""
+
+from gpubench.harness import metric_reader
+
+read = metric_reader("composite_bwd_roofline")

@@ -1,0 +1,6 @@
+"""`device_busy_ms.train` in the cell at the densify cap, where it moves
+`train_steps_per_s`: the same reader (gpubench/metrics/device_busy_ms.train.py)."""
+
+from gpubench.harness import metric_reader
+
+read = metric_reader("device_busy_ms.train")

@@ -163,6 +163,7 @@ def densify_and_prune(
     prune_big_screen: bool = False,
     max_screen_size: float = 20.0,
     noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    counts: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[Params, torch.Tensor, torch.Tensor]:
     """One densify+prune step (densify_and_prune, gaussian_model.py:417-429).
 
@@ -174,6 +175,15 @@ def densify_and_prune(
     ``noise`` (two (C, 3) standard normals) replaces the generator's draw,
     so a test can feed both packages the same numbers. Returns (params,
     alive, written): ``written`` marks slots whose moments must be zeroed.
+
+    At a full block the children outnumber the free slots, and those past
+    the last free slot are dropped (the capacity is the reference's
+    population cap, train.py:146). A given ``counts`` dict receives, as
+    0-d int64 tensors on the params' device (no host read): ``wanted``
+    (clones plus two per split), ``placed``, ``dropped`` (wanted less
+    placed), ``pruned`` (live Gaussians the opacity and size rules remove;
+    split parents not counted) and ``free`` (free slots once the pruned
+    and the split parents are gone).
     """
     grads = stats["grad_accum"] / torch.clamp_min(stats["denom"], 1.0)
     stds = scaling_act(params["scaling"])
@@ -186,6 +196,8 @@ def densify_and_prune(
     if prune_big_screen:
         prune = prune | (alive & (stats["max_radii2d"] > max_screen_size))
         prune = prune | (alive & (max_scale > 0.1 * extent))
+    if counts is not None:
+        counts["pruned"] = prune.sum()
     prune = prune | split
     alive = alive & ~prune
 
@@ -208,8 +220,14 @@ def densify_and_prune(
         for k, v in child0_split.items()
     }
     child_valid = torch.cat([clone | split, split])
+    if counts is not None:
+        counts["free"] = (~alive).sum()
     params, alive, written = _compact_scatter(params, alive, children,
                                               child_valid)
+    if counts is not None:
+        counts["wanted"] = child_valid.sum()
+        counts["placed"] = written.sum()
+        counts["dropped"] = counts["wanted"] - counts["placed"]
     dead = ~alive
     params["opacity"] = torch.where(dead[:, None], DEAD_FILL,
                                     params["opacity"])

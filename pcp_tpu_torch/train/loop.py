@@ -199,10 +199,13 @@ def train_scene(
 ) -> TrainState:
     """Train one scene/block on ``device`` (the card unless ``"cpu"``);
     writes its outputs under cfg.model.model_path. Metrics are read and
-    logged at iteration 1 and every ``log_interval`` iterations. A given
-    ``state`` (a loaded checkpoint) resumes at ``start_iter + 1``. A
-    ``viewer`` (``viewer.NetworkGUI``) is polled before each step, and
-    again while it pauses training (JAX loop.py:461-466)."""
+    logged at iteration 1 and every ``log_interval`` iterations, with the
+    newest densify call's counts (``densify/wanted``, ``placed``,
+    ``dropped``, ``pruned``, ``free``) where one ran since the last
+    report. A given ``state`` (a loaded checkpoint) resumes at
+    ``start_iter + 1``. A ``viewer`` (``viewer.NetworkGUI``) is polled
+    before each step, and again while it pauses training (JAX
+    loop.py:461-466)."""
     dev = resolve_device(device)
     model_path = cfg.model.model_path
     os.makedirs(model_path, exist_ok=True)
@@ -233,6 +236,9 @@ def train_scene(
     ema_loss = 0.0
     t0 = t_last = time.time()
     it_last = start_iter
+    # the newest densify call's counts (device tensors), read at the next
+    # report: children wanted, placed and dropped at the capacity, pruned
+    densify_counts: Dict[str, torch.Tensor] = {}
     # GT bank on the card as uint8: the sources are 8-bit images, so u8
     # holds them exactly at a quarter of the memory (loop.py:440-460);
     # images outside [0, 1] stay f32.
@@ -290,7 +296,8 @@ def train_scene(
                         and it > ocfg.densify_from_iter):
                     state = densify_impl(
                         state, generator, scene.extent, ocfg=ocfg,
-                        prune_big=it > ocfg.opacity_reset_interval)
+                        prune_big=it > ocfg.opacity_reset_interval,
+                        counts=densify_counts)
                 if it % ocfg.opacity_reset_interval == 0 or (
                         cfg.model.white_background
                         and it == ocfg.densify_from_iter):
@@ -307,17 +314,23 @@ def train_scene(
                            f"Gaussians > max_per_tile={ocfg.max_per_tile}); "
                            f"the farthest are dropped in dense tiles -- "
                            f"raise --max_per_tile")
+                densified = {k: int(v) for k, v in densify_counts.items()}
+                densify_counts.clear()
                 logger.scalars(it, {
                     "train_loss_patches/total_loss": loss,
                     "total_points": n_alive,
                     "iter_time": (now - t_last) / max(it - it_last, 1),
                     "n_pairs": float(metrics["n_pairs"]),
                     "n_dropped": metrics["n_dropped"],
+                    **{f"densify/{k}": v for k, v in densified.items()},
                 })
                 t_last, it_last = now, it
                 if log_fn:
                     log_fn(f"iter {it:6d} loss {ema_loss:.5f} alive "
                            f"{n_alive} ({now - t0:.1f}s)")
+                    if densified:
+                        log_fn("  densify: " + ", ".join(
+                            f"{k} {v}" for k, v in densified.items()))
             if it in cfg.test_iterations and test_cams:
                 m = evaluate_cameras(state, test_cams, sh_degree, background,
                                      ocfg)

@@ -9,8 +9,9 @@ as in the JAX package. Parameters, moments and stats are updated in place;
 densify, prune and opacity reset are separate functions on the same
 fixed-capacity state, called by the loop on the reference cadence.
 
-The loss and the update run inside ``torch.profiler.record_function``
-ranges (``appearance + loss``, ``densify stats + adam``), beside those of
+The loss, the update and densify run inside
+``torch.profiler.record_function`` ranges (``appearance + loss``,
+``densify stats + adam``, ``densify``), beside those of
 ``ops.preprocess_fwd`` and ``ops.rasterize``, so a profiler run reads each
 stage's device time.
 """
@@ -271,18 +272,22 @@ def train_step_impl(
 
 def densify_impl(state: TrainState, generator: Optional[torch.Generator],
                  extent: float, *, ocfg: OptimConfig, prune_big: bool,
-                 noise=None) -> TrainState:
-    """Densify + prune with the moment surgery; ``noise`` as in
-    ``gaussians.densify_and_prune``."""
-    params, alive, written = G.densify_and_prune(
-        state.params, state.alive, state.stats, generator,
-        grad_threshold=ocfg.densify_grad_threshold,
-        min_opacity=ocfg.min_opacity, extent=extent,
-        percent_dense=ocfg.percent_dense, prune_big_screen=prune_big,
-        noise=noise)
-    optim.zero_moments(state.opt_g, written)
+                 noise=None, counts: Optional[Dict] = None) -> TrainState:
+    """Densify + prune with the moment surgery, inside the profiler range
+    ``densify``; ``noise`` and ``counts`` (the call's children wanted,
+    placed and dropped, Gaussians pruned and free slots, as device
+    tensors) as in ``gaussians.densify_and_prune``."""
+    with record_function("densify"):
+        params, alive, written = G.densify_and_prune(
+            state.params, state.alive, state.stats, generator,
+            grad_threshold=ocfg.densify_grad_threshold,
+            min_opacity=ocfg.min_opacity, extent=extent,
+            percent_dense=ocfg.percent_dense, prune_big_screen=prune_big,
+            noise=noise, counts=counts)
+        optim.zero_moments(state.opt_g, written)
+        stats = G.init_densify_stats(alive.shape[0], alive.device)
     return TrainState(params, state.app, state.opt_g, state.opt_a, alive,
-                      G.init_densify_stats(alive.shape[0], alive.device))
+                      stats)
 
 
 def opacity_reset_impl(state: TrainState) -> TrainState:

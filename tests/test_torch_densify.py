@@ -3,7 +3,8 @@
 - ``mean_sq_dist_3nn``: the same Morton-window algorithm, 1e-5 relative;
 - ``create_from_pcd``: the same capacity-padded params and alive mask;
 - ``densify_and_prune`` with the split noise JAX draws from its key fed to
-  the port: the same alive mask and written slots, params to 1e-5;
+  the port: the same alive mask and written slots, params to 1e-5, also
+  on a full block (every slot live), where children are dropped;
 - ``reset_opacity``: equal.
 """
 
@@ -95,9 +96,14 @@ def _state(seed, c=96, n_alive=70):
     return params, alive, stats
 
 
-@pytest.mark.parametrize("prune_big", [False, True])
-def test_densify_and_prune_matches_jax(prune_big):
-    params, alive, stats = _state(7)
+@pytest.mark.parametrize("prune_big,full", [(False, False), (True, False),
+                                             (True, True)],
+                         ids=["False", "True", "full"])
+def test_densify_and_prune_matches_jax(prune_big, full):
+    # ``full``: every slot live, as at the reference's population cap; the
+    # children outnumber the free slots and those past the last are
+    # dropped (the same 96 slots as the other cases: one JAX compile)
+    params, alive, stats = _state(7, n_alive=96 if full else 70)
     c = alive.shape[0]
     kw = dict(grad_threshold=0.0002, min_opacity=0.005, extent=3.0,
               percent_dense=0.01, prune_big_screen=prune_big)
@@ -108,11 +114,12 @@ def test_densify_and_prune_matches_jax(prune_big):
     k0, k1 = jax.random.split(key)
     noise = tuple(torch.from_numpy(np.array(jax.random.normal(k, (c, 3))))
                   for k in (k0, k1))
+    counts = {}
     t_p, t_alive, t_written = tG.densify_and_prune(
         {k: torch.from_numpy(v) for k, v in params.items()},
         torch.from_numpy(alive), {k: torch.from_numpy(v)
                                   for k, v in stats.items()},
-        None, noise=noise, **kw)
+        None, noise=noise, counts=counts, **kw)
     np.testing.assert_array_equal(t_alive.numpy(), np.asarray(j_alive))
     np.testing.assert_array_equal(t_written.numpy(), np.asarray(j_written))
     for k in tG.PARAM_KEYS:
@@ -120,7 +127,10 @@ def test_densify_and_prune_matches_jax(prune_big):
                                    rtol=1e-5, atol=1e-6, err_msg=k)
     # the case reaches what it is meant to: clones, splits and prunes
     assert int(t_written.sum()) > 10
-    assert int(t_alive.sum()) != int(alive.sum())
+    if full:   # every free slot filled, children dropped
+        assert bool(t_alive.all()) and int(counts["dropped"]) > 0
+    else:
+        assert int(t_alive.sum()) != int(alive.sum())
 
 
 def test_full_capacity_drops_children():

@@ -20,6 +20,7 @@ the gradient is well above the noise both move by the same lr.
 """
 
 import functools
+import json
 import os
 
 import jax
@@ -252,6 +253,14 @@ def test_cli_trains_on_the_cpu(scene_dir, tmp_path, monkeypatch):
     assert os.path.exists(os.path.join(out, "eval_30.json"))
     logged = open(os.path.join(out, "train_log.jsonl")).read().splitlines()
     assert len(logged) >= 4
+    # each report after a densify call carries that call's counts
+    rows = [json.loads(r) for r in logged]
+    counted = [r for r in rows if "densify/wanted" in r]
+    assert [r["step"] for r in counted] == [10, 20, 30]
+    for r in counted:
+        assert r["densify/placed"] + r["densify/dropped"] == (
+            r["densify/wanted"])
+        assert r["densify/placed"] <= r["densify/free"]
 
 
 def test_cfg_args_load_across_packages(tmp_path):
